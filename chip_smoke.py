@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Smoke test of compressjs_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, holds each
+kernel equal to its plain version on the card at main-path shapes,
+re-encodes the in-repo bzip2 goldens at -9 through
+``compress_file_device`` and checks the bytes, times the encode and each
+kernel, and prints:
+
+* the card's name and power limit, as nvidia-smi reports them;
+* one JSON line ``{"kernels": [...]}`` with each kernel's launches on
+  the main-path run, error against its plain version, times and bound;
+* last, ``{"ok": true, "device": {...}}``.
+
+Any failed phase raises and the script exits non-zero.  Without a CUDA
+card it exits non-zero before printing any result.
+"""
+
+import bz2
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, 'tests', 'golden')
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor
+# vector rate, used for the kernels' 32-bit integer operations
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def phase(name):
+    print('== %s' % name, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def golden(name):
+    with open(os.path.join(GOLDEN, name), 'rb') as f:
+        comp = f.read()
+    return comp, bz2.decompress(comp)
+
+
+def cuda_ms(fn, reps):
+    """Mean device milliseconds of fn() over reps launches, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes, nops):
+    """(least milliseconds for the work, what sets it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def first_block_bwt(data, dev):
+    """Dense-alphabet BWT of the first -9 block of `data` on the card:
+    the MTF kernel's input on the main path."""
+    from compressjs_tpu_torch.host.rle1 import rle1_encode
+    from compressjs_tpu_torch.ops.block_kernels import bwt_block
+    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    block, _ = rle1_encode(np.frombuffer(data, np.uint8), 0, 899981)
+    _, _, remap = _block_meta(block)
+    U, _ = bwt_block(torch.from_numpy(block).to(dev), block.shape[0])
+    return torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
+
+
+def check_mtf(dense, width):
+    """Kernel vs plain on one input; returns (max_abs_err, kernel ms,
+    wrapper ms, plain ms, bound ms, bound_by)."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops.block_kernels import (
+        _chunk_start_positions, _pad_chunks, mtf_scan, mtf_scan_plain)
+    n = dense.shape[0]
+    starts = _chunk_start_positions(_pad_chunks(dense, n), width)
+    got = mtf_scan(dense, starts)
+    want = mtf_scan_plain(dense, starts)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError('MTF kernel differs from its plain version '
+                             '(width %d): max abs err %d' % (width, err))
+    lib = _cuda.lib()
+    out = torch.empty_like(dense)
+    stream = _cuda.stream_handle(dense.device)
+
+    def launch():  # the kernel alone, outside the wrapper
+        _cuda.check(lib.cz_mtf_scan(dense.data_ptr(), starts.data_ptr(),
+                                    out.data_ptr(), n, starts.shape[0],
+                                    width, stream), 'mtf_scan')
+
+    ms = cuda_ms(launch, 20)
+    if not torch.equal(out, got):
+        raise AssertionError('timed MTF launches differ')
+    wrapper = cuda_ms(lambda: mtf_scan(dense, starts), 20)
+    plain = cuda_ms(lambda: mtf_scan_plain(dense, starts), 2)
+    # what these inputs need: per symbol a table lookup and a clear, plus
+    # one bump for each of the j = code entries that sit in front of it
+    b = bound(4 * n * 2 + 4 * starts.numel(),
+              2 * n + int(want.long().sum()))
+    return err, ms, wrapper, plain, b[0], b[1]
+
+
+def adversarial_tables():
+    """(arrs, ms) that stress the allocator: Fibonacci frequencies (they
+    force the relocating fill at the 20-bit limit), flat, tiny alphabets
+    and random tables, all sorted as the caller sorts them."""
+    from compressjs_tpu_torch.ops.device_entropy import N
+    rng = np.random.default_rng(0)
+    rows, ms = [], []
+
+    def add(freqs):
+        row = np.zeros(N, dtype=np.int32)
+        row[:len(freqs)] = np.sort(freqs)
+        rows.append(row)
+        ms.append(len(freqs))
+
+    fib = [1, 1]
+    while len(fib) < 29:
+        fib.append(fib[-1] + fib[-2])
+    for m in (22, 25, 29):
+        add(np.array(fib[:m]))
+    add(np.array(fib + [1] * 200))
+    for m in (1, 2, 3, 258):
+        add(np.ones(m, dtype=np.int64))
+    for m in (3, 17, 130, 258):
+        add(rng.integers(0, 900001 // m, m))
+        add(np.minimum(rng.zipf(1.3, m), 900001 // m))
+    return (torch.from_numpy(np.stack(rows)),
+            torch.tensor(ms, dtype=torch.int32))
+
+
+def check_alloc(tables, dev):
+    """Kernel vs plain on every table; returns (max_abs_err, kernel ms,
+    wrapper ms, plain ms, bound ms, bound_by) at the main path's B=6
+    shape."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import device_entropy as de
+    err = 0
+    for arrs, ms in tables:
+        arrs = arrs.to(dev).contiguous()
+        ms = ms.to(dev).contiguous()
+        got = de.alloc_lengths(arrs, ms)
+        want = de.alloc_lengths_plain(arrs, ms)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+    if err:
+        raise AssertionError('allocator kernel differs from its plain '
+                             'version: max abs err %d' % err)
+    six = [t for t in tables if t[0].shape[0] == de.G]
+    arrs, ms = six[0][0].to(dev), six[0][1].to(dev)
+    lib = _cuda.lib()
+    out = torch.empty_like(arrs)
+    flags = torch.empty(de.G, dtype=torch.int32, device=dev)
+    stream = _cuda.stream_handle(dev)
+
+    def launch():  # the kernel alone: no allocation, no flag read-back
+        _cuda.check(lib.cz_alloc_lengths(
+            arrs.data_ptr(), ms.data_ptr(), out.data_ptr(),
+            flags.data_ptr(), de.G, de.MAX_LEN, stream), 'alloc_lengths')
+
+    ms_k = cuda_ms(launch, 50)
+    if int(flags.max()) or not torch.equal(
+            out, de.alloc_lengths_plain(arrs, ms)):
+        raise AssertionError('timed allocator launches differ')
+    wrapper = cuda_ms(lambda: de.alloc_lengths(arrs, ms), 50)
+    plain = cuda_ms(lambda: de.alloc_lengths_plain(arrs, ms), 5)
+    # phase 1 dominates: ~16 integer operations per table slot
+    b = bound(4 * (2 * arrs.numel() + 2 * ms.numel()),
+              16 * int(ms.sum()))
+    return err, ms_k, wrapper, plain, b[0], b[1]
+
+
+def record_tables(fn):
+    """Run fn() and return every (arrs, ms) the allocator was given."""
+    from compressjs_tpu_torch.ops import device_entropy as de
+    seen = []
+    orig = de.alloc_lengths
+
+    def recorder(arrs, ms):
+        seen.append((arrs.clone(), ms.clone()))
+        return orig(arrs, ms)
+
+    de.alloc_lengths = recorder
+    try:
+        fn()
+    finally:
+        de.alloc_lengths = orig
+    return seen
+
+
+def main():
+    t_start = time.perf_counter()
+    # a hang anywhere prints every thread's stack and exits non-zero
+    # inside the smoke's 1200 s limit
+    faulthandler.dump_traceback_later(1100, exit=True)
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import compressjs_tpu_torch as cz
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    dev = torch.device('cuda')
+
+    phase('card')
+    card = card_line()
+    print(card, flush=True)
+    print('torch %s, CUDA %s, %s' % (torch.__version__, torch.version.cuda,
+                                     torch.cuda.get_device_name(0)))
+
+    phase('build')
+    _cuda.lib()
+    print('build %.2f s -> %s' % (_cuda.build_info['seconds'],
+                                  _cuda.build_info['path']))
+    for line in _cuda.build_info['log'].splitlines():
+        if 'ptxas' in line:
+            print('  ' + line.strip())
+
+    s5_comp, s5 = golden('sample5_bzip2_9.bz2')
+    s5x4_comp, s5x4 = golden('sample5x4_bzip2_9.bz2')
+
+    phase('MTF kernel vs plain version')
+    rng = np.random.default_rng(1234)
+    mtf_real = check_mtf(first_block_bwt(s5, dev), 256)
+    mtf_rand = check_mtf(torch.from_numpy(
+        rng.integers(0, 256, 899981).astype(np.int32)).to(dev), 256)
+    print('  sample5 block: kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, '
+          'bound %.5f ms (%s)' % mtf_real[1:])
+    print('  random block:  kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, '
+          'bound %.5f ms (%s)' % mtf_rand[1:])
+
+    phase('allocator kernel vs plain version')
+    tables = record_tables(
+        lambda: cz.compress_file_device(s5, level=9, device='cuda'))
+    tables.append(adversarial_tables())
+    alloc = check_alloc(tables, dev)
+    print('  %d launches of tables: kernel %.4f ms, wrapper %.4f ms, '
+          'plain %.3f ms, bound %.6f ms (%s)' % ((len(tables),) + alloc[1:]))
+
+    phase('main path: sample5x4 at -9')
+    for name in _cuda.launches:
+        _cuda.launches[name] = 0
+    out = cz.compress_file_device(s5x4, level=9, device='cuda')
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    n_blocks = len(_split_blocks(np.frombuffer(s5x4, np.uint8), 899981))
+    print('  %d bytes -> %d bytes, %d blocks, launches %s'
+          % (len(s5x4), len(out), n_blocks, launches))
+    if out != s5x4_comp:
+        raise AssertionError('sample5x4 encode differs from the golden')
+    if bz2.decompress(out) != s5x4:
+        raise AssertionError('sample5x4 encode does not round-trip')
+    if launches['mtf_scan'] != n_blocks or \
+            launches['alloc_lengths'] < n_blocks:
+        raise AssertionError('main path skipped a kernel: %s' % launches)
+
+    phase('more inputs')
+    out = cz.compress_file_device(s5, level=9, device='cuda')
+    if out != s5_comp or bz2.decompress(out) != s5:
+        raise AssertionError('sample5 encode differs from the golden')
+    for name, data in [
+            ('random', rng.integers(0, 256, 900000).astype(
+                np.uint8).tobytes()),
+            ('periodic', (b'abcabd' * 150000))]:
+        out = cz.compress_file_device(data, level=9, device='cuda')
+        if bz2.decompress(out) != data:
+            raise AssertionError('%s input does not round-trip' % name)
+        print('  %s: %d -> %d bytes, round-trips' % (name, len(data),
+                                                     len(out)))
+
+    phase('timing')
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    t0.record()
+    out = cz.compress_file_device(s5x4, level=9, device='cuda')
+    t1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    if out != s5x4_comp:
+        raise AssertionError('timed sample5x4 encode differs')
+    print('  sample5x4 -9 encode: wall %.3f s (%.3f MB/s), CUDA events '
+          '%.3f s' % (wall, len(s5x4) / wall / 1e6,
+                      t0.elapsed_time(t1) / 1e3))
+
+    kernels = [
+        {'name': 'mtf_scan', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/mtf_scan.cu',
+         'replaces': 'compressjs_tpu/ops/pallas_kernels.py:51',
+         'launches': launches['mtf_scan'],
+         'max_abs_err': max(mtf_real[0], mtf_rand[0]),
+         'ms': mtf_real[1], 'plain_ms': mtf_real[3],
+         'bound_ms': mtf_real[4], 'bound_by': mtf_real[5],
+         'library_ms': None},
+        {'name': 'alloc_lengths', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
+         'replaces': 'compressjs_tpu/ops/device_entropy.py:238',
+         'launches': launches['alloc_lengths'],
+         'max_abs_err': alloc[0], 'ms': alloc[1], 'plain_ms': alloc[3],
+         'bound_ms': alloc[4], 'bound_by': alloc[5], 'library_ms': None},
+    ]
+    print('smoke total %.1f s' % (time.perf_counter() - t_start))
+    print(card)
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

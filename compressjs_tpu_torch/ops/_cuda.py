@@ -1,0 +1,123 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  At first use they
+are compiled with ``nvcc`` for ``sm_90a`` (one object per source, all
+compiles started together) and linked into one shared library under
+``_build/<hash of sources and flags>/``, then loaded with ``ctypes``.
+A library already built for the same sources is reused.  Nothing here
+runs at import time: the CPU build of the package never compiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(_PKG, '_build')
+SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu')
+ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
+CFLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                 '-Xptxas', '-v']
+
+_lock = threading.Lock()
+_lib = None
+# kernel launches so far, by kernel: each wrapper adds one where it calls
+# its kernel's C entry point, and nowhere else
+launches = {'mtf_scan': 0, 'alloc_lengths': 0}
+# what the last build did: wall seconds and nvcc's messages (the
+# -Xptxas -v register and shared-memory lines); empty if reused
+build_info = {'seconds': 0.0, 'log': '', 'path': None}
+
+
+def _nvcc():
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels cannot be '
+                           'built')
+    return path
+
+
+def _build():
+    srcs = [os.path.join(CSRC, s) for s in SOURCES]
+    h = hashlib.sha256(' '.join(CFLAGS).encode())
+    for s in srcs:
+        with open(s, 'rb') as f:
+            h.update(f.read())
+    out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
+    so = os.path.join(out_dir, 'libcompressjs_cuda.so')
+    if os.path.exists(so):
+        build_info.update(seconds=0.0, log='', path=so)
+        return so
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    tag = '.%d' % os.getpid()
+    t0 = time.perf_counter()
+    objs, procs = [], []
+    for s in srcs:
+        obj = os.path.join(out_dir, os.path.basename(s) + tag + '.o')
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *CFLAGS, '-c', '-o', obj, s],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode:
+            raise RuntimeError('nvcc failed on %s:\n%s' % (s, out))
+    tmp = so + tag
+    link = subprocess.run([nvcc, *ARCH, '-shared', '-o', tmp, *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode:
+        raise RuntimeError('nvcc link failed:\n' + link.stdout)
+    os.replace(tmp, so)
+    for obj in objs:
+        os.remove(obj)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      log=''.join(logs) + link.stdout, path=so)
+    return so
+
+
+def _bind(lib):
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.cz_mtf_scan.argtypes = [p, p, p, i64, i32, i32, p]
+    lib.cz_mtf_scan.restype = i32
+    lib.cz_alloc_lengths.argtypes = [p, p, p, p, i32, i32, p]
+    lib.cz_alloc_lengths.restype = i32
+    return lib
+
+
+def lib():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(_build()))
+        return _lib
+
+
+def stream_handle(device):
+    """The current CUDA stream of `device` as a pointer-sized int."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc, what):
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError('%s launch failed: CUDA error %d' % (what, rc))
+
+
+def require_cuda(t, what):
+    """Kernel wrappers launch only for CUDA tensors."""
+    if t.device.type != 'cuda':
+        raise RuntimeError('%s: no kernel for a tensor on %s'
+                           % (what, t.device))

@@ -1,0 +1,273 @@
+"""Tensor build of the bzip2 block transforms: rotation sort, BWT,
+move-to-front and RLE2 (counterpart of ``compressjs_tpu.ops.jax_kernels``).
+
+* `cyclic_suffix_sort` -- quad prefix doubling: each round sorts
+  (rank, rank@k, rank@2k, rank@3k) and compresses ranks to group-start
+  form, until all groups are singletons.  ``torch.sort`` takes one key,
+  so every multi-key sort is built from stable sorts, least significant
+  key first, over keys packed into int64.
+* `mtf_encode` -- chunked move-to-front: per-chunk start tables from a
+  max-scan over last occurrences, then `mtf_scan`, which launches the
+  CUDA MTF kernel (``csrc/mtf_scan.cu``, replacing the JAX package's
+  Pallas ``_mtf_kernel``) for a CUDA tensor and runs its plain version
+  `mtf_scan_plain`, one vector step per chunk position over every
+  chunk's table at once, for a CPU tensor.
+* `rle2_encode` -- RUNA/RUNB zero-run digits by segment math.
+
+All functions take tensors on any device and return tensors on it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+CHUNK_LEN = 512          # MTF chunk length (fixed in csrc/mtf_scan.cu)
+MAX_BLOCK = 1 << 20      # ranks and indices must pack into 20 bits
+
+
+def _seg_start(diff):
+    """Index of the current group's first element, per sorted slot."""
+    pos = torch.arange(diff.shape[0], device=diff.device)
+    return torch.cummax(torch.where(diff, pos, 0), 0).values
+
+
+def _tied_count(diff):
+    """Number of elements in groups of size > 1, from sorted diff flags."""
+    nxt = torch.cat([diff[1:], diff.new_ones(1)])
+    return diff.shape[0] - int((diff & nxt).sum())
+
+
+def _diff_flags(keys_sorted):
+    """True where a sorted slot starts a new group of equal keys."""
+    n = keys_sorted[0].shape[0]
+    diff = torch.zeros(n, dtype=torch.bool, device=keys_sorted[0].device)
+    diff[0] = True
+    for k in keys_sorted:
+        diff[1:] |= k[1:] != k[:-1]
+    return diff
+
+
+def _lex_order(keys):
+    """Permutation sorting by `keys` lexicographically (first key most
+    significant); equal rows keep index order.  Stable sorts, least
+    significant key first."""
+    order = None
+    for k in reversed(keys):
+        cur = k if order is None else k[order]
+        perm = torch.sort(cur, stable=True).indices
+        order = perm if order is None else order[perm]
+    return order
+
+
+def _ranks_from_order(keys, order):
+    """(group-start rank per position, tied count) of a sorted order."""
+    diff = _diff_flags([k[order] for k in keys])
+    start = _seg_start(diff)
+    rank = torch.empty_like(start)
+    rank[order] = start
+    return rank, _tied_count(diff)
+
+
+def _seed_ranks_start4(w0, w4, w8, w12):
+    """Seed (rank, order, tied) from four uint32 context words held in
+    int64.  Two words pack into one int64 key; the first word is offset
+    by -2^31 so the signed order equals the unsigned one."""
+    hi = (w0 - (1 << 31)) * (1 << 32) + w4
+    lo = (w8 - (1 << 31)) * (1 << 32) + w12
+    order = _lex_order([hi, lo])
+    rank, tied = _ranks_from_order([hi, lo], order)
+    return rank, order, tied
+
+
+def _quad_double(rank, order, tied, n, k):
+    """Quad doubling rounds until all ranks are distinct (or k >= n for a
+    periodic block).  Returns (rank, order, tied)."""
+    while tied > 0 and k < n:
+        r2 = torch.roll(rank, -k)
+        r3 = torch.roll(rank, -2 * k)
+        r4 = torch.roll(rank, -3 * k)
+        # ranks are < 2^20: three of them fill one int64 key
+        packed = (rank << 40) | (r2 << 20) | r3
+        order = _lex_order([packed, r4])
+        rank, tied = _ranks_from_order([packed, r4], order)
+        k *= 4
+    return rank, order, tied
+
+
+def cyclic_suffix_sort(block, n):
+    """Sorted rotation start indices of block[:n] (uint8), ties between
+    equal rotations broken by descending index."""
+    if not 0 < n < MAX_BLOCK:
+        raise ValueError('block length %d outside 1..%d' % (n, MAX_BLOCK - 1))
+    bu = block[:n].to(torch.int64)
+
+    def word(d):
+        return ((torch.roll(bu, -d) << 24) | (torch.roll(bu, -(d + 1)) << 16)
+                | (torch.roll(bu, -(d + 2)) << 8) | torch.roll(bu, -(d + 3)))
+
+    rank, order, tied = _seed_ranks_start4(word(0), word(4), word(8),
+                                           word(12))
+    rank, order, tied = _quad_double(rank, order, tied, n, 16)
+    if tied > 0:
+        # periodic block: order by (rank ascending, index descending)
+        idx = torch.arange(n, device=block.device)
+        order = torch.sort(rank * n + (n - 1 - idx)).indices
+    return order
+
+
+def bwt_block(block, n):
+    """Cyclic BWT of one block: (U uint8, pidx)."""
+    order = cyclic_suffix_sort(block, n)
+    prev = torch.where(order == 0, n - 1, order - 1)
+    pidx = torch.argmax((order == 0).to(torch.int32))
+    return block[:n][prev], pidx
+
+
+# ---------------------------------------------------------------------------
+# move-to-front
+
+def _chunk_start_positions(chunks, width=256):
+    """(n_chunks, width) position of each symbol at each chunk's start.
+
+    The MTF list before chunk t is all symbols ordered by the position of
+    their most recent occurrence in chunks[0:t] (most recent first), with
+    never-seen symbols in identity order -- modelled as virtual
+    occurrences at -(s+1).  So start tables fall out of an exclusive
+    max-scan of per-chunk last-occurrence vectors plus one rank-within-row
+    sort."""
+    n_chunks, chunk_len = chunks.shape
+    dev = chunks.device
+    gpos = torch.arange(n_chunks * chunk_len, device=dev).view(
+        n_chunks, chunk_len)
+    last_occ = torch.full((n_chunks, width), -1, dtype=torch.int64,
+                          device=dev)
+    last_occ.scatter_reduce_(1, chunks.to(torch.int64), gpos, 'amax')
+    virt = -1 - torch.arange(width, device=dev)
+    shifted = torch.cat([(virt - width)[None, :], last_occ[:-1]], 0)
+    before = torch.maximum(torch.cummax(shifted, 0).values, virt[None, :])
+    # all values of a row are distinct, so the rank order is unique
+    order = torch.sort(-before, dim=1, stable=True).indices
+    starts = torch.empty_like(order)
+    starts.scatter_(1, order, torch.arange(width, device=dev).expand(
+        n_chunks, width).contiguous())
+    return starts.to(torch.int32)
+
+
+def _pad_chunks(data, n):
+    """data[:n] as (n_chunks, CHUNK_LEN) int64, padded with symbol 0."""
+    n_chunks = -(-n // CHUNK_LEN)
+    d = torch.zeros(n_chunks * CHUNK_LEN, dtype=torch.int64,
+                    device=data.device)
+    d[:n] = data[:n]
+    return d.view(n_chunks, CHUNK_LEN)
+
+
+def mtf_scan_plain(data, starts):
+    """MTF indices (int32) of data[:n], n = data.shape[0], chunk c starting
+    from table starts[c].  The plain version of the CUDA MTF kernel: one
+    vector step per chunk position, over all chunks at once."""
+    n = data.shape[0]
+    chunks = _pad_chunks(data, n)
+    pos = starts.to(torch.int32).clone()
+    rows = torch.arange(chunks.shape[0], device=data.device)
+    out = torch.empty_like(chunks, dtype=torch.int32)
+    for t in range(CHUNK_LEN):
+        s = chunks[:, t]
+        j = pos[rows, s]
+        pos += (pos < j[:, None]).to(torch.int32)
+        pos[rows, s] = 0
+        out[:, t] = j
+    return out.view(-1)[:n]
+
+
+def mtf_scan(data, starts):
+    """MTF indices (int32) of data (n,) int32, chunk c of CHUNK_LEN
+    symbols starting from table starts[c] (n_chunks, width) int32: the
+    CUDA kernel ``csrc/mtf_scan.cu`` for a CUDA tensor, `mtf_scan_plain`
+    for a CPU tensor; for a tensor anywhere else it raises."""
+    if data.device.type == 'cpu':
+        return mtf_scan_plain(data, starts)
+    _cuda.require_cuda(data, 'mtf_scan')
+    n = data.shape[0]
+    n_chunks, width = starts.shape
+    if (data.dtype != torch.int32 or starts.dtype != torch.int32
+            or not data.is_contiguous() or not starts.is_contiguous()
+            or starts.device != data.device):
+        raise ValueError('mtf_scan takes contiguous int32 tensors on one '
+                         'device')
+    if not 0 < width <= 256 or n_chunks != -(-n // CHUNK_LEN):
+        raise ValueError('mtf_scan: bad shape (n=%d, chunks=%d, width=%d)'
+                         % (n, n_chunks, width))
+    out = torch.empty_like(data)
+    lib = _cuda.lib()
+    _cuda.launches['mtf_scan'] += 1
+    _cuda.check(lib.cz_mtf_scan(data.data_ptr(), starts.data_ptr(),
+                                out.data_ptr(), n, n_chunks, width,
+                                _cuda.stream_handle(data.device)),
+                'mtf_scan')
+    return out
+
+
+def mtf_encode(data, n, width=256):
+    """MTF indices of data[:n] (dense symbols < width) with the identity
+    initial list, through `mtf_scan`."""
+    d = data[:n].to(torch.int32).contiguous()
+    return mtf_scan(d, _chunk_start_positions(_pad_chunks(d, n), width))
+
+
+# ---------------------------------------------------------------------------
+# RLE2 (RUNA/RUNB) symbol stream
+
+def _bit_length(x):
+    """Bit length of each non-negative int64 below 2^32."""
+    return sum(((x >> b) > 0).to(torch.int64) for b in range(32))
+
+
+def rle2_encode(mtf_seq, n, eob):
+    """bzip2 symbol stream from MTF indices: zero runs become bijective
+    base-2 RUNA/RUNB digits (digit i of run length L = bit i of L+1,
+    digit count = bit_length(L+1) - 1), value j becomes symbol j+1, then
+    EOB.  Returns (syms[n+1] int16 padded with eob, count, freq[260])."""
+    dev = mtf_seq.device
+    seq = mtf_seq[:n].to(torch.int64)
+    idx = torch.arange(n, device=dev)
+    is_zero = seq == 0
+    # first index of the current zero run = 1 + last nonzero position
+    run_start = torch.cummax(torch.where(is_zero, 0, idx + 1), 0).values
+    nxt_nonzero = torch.cat([seq[1:] != 0, is_zero.new_ones(1)])
+    run_end = is_zero & nxt_nonzero
+    run_len = torch.where(run_end, idx - run_start + 1, 0)
+    k_digits = torch.where(run_end, _bit_length(run_len + 1) - 1, 0)
+
+    out_count = torch.where(is_zero, k_digits, 1)
+    offsets = torch.cumsum(out_count, 0) - out_count
+    total = out_count.sum()
+
+    # every producer (literal or run end) claims its first output slot
+    # with a scatter-max; a running max then names each slot's producer
+    out_idx = torch.arange(n + 1, device=dev)
+    mark = torch.zeros(n + 2, dtype=torch.int64, device=dev)
+    mark.scatter_reduce_(0, torch.where(out_count > 0, offsets, n + 1), idx,
+                         'amax')
+    iat = torch.cummax(mark[:n + 1], 0).values
+    digit = (out_idx - offsets[iat]).clamp(0, 31)
+    s = seq[iat]
+    sym = torch.where(s != 0, s + 1, ((run_len[iat] + 1) >> digit) & 1)
+    syms = torch.where(out_idx < total, sym, eob)
+    count = total + 1
+    freq = torch.bincount(syms, minlength=260)[:260].to(torch.int32)
+    freq[eob] -= (n + 1 - count).to(torch.int32)
+    return syms.to(torch.int16), count, freq
+
+
+def encode_block_core(block, n, remap, eob):
+    """Rotation sort -> BWT -> dense-alphabet remap -> MTF -> RLE2 for
+    one block.  Returns (pidx, syms, count, freq).  MTF runs through the
+    CUDA kernel for a block on the card."""
+    U, pidx = bwt_block(block, n)
+    dense = remap[U.to(torch.int64)]
+    mtf_seq = mtf_encode(dense, n)
+    syms, count, freq = rle2_encode(mtf_seq, n, eob)
+    return pidx, syms, count, freq

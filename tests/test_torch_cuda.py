@@ -1,0 +1,78 @@
+"""compressjs_tpu_torch's CUDA kernels on the card, each against its
+plain version, and the -9 golden through the whole encode on the card.
+Run on a machine with a CUDA card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX, which a machine with
+only the port need not have.)  Without a card every test here skips."""
+
+import bz2
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import compressjs_tpu_torch as cz
+from compressjs_tpu_torch.ops import _cuda
+from compressjs_tpu_torch.ops import block_kernels as bk
+from compressjs_tpu_torch.ops import device_entropy as de
+
+pytestmark = pytest.mark.cuda
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('width,n', [(256, 899981), (64, 5000), (256, 1)])
+def test_mtf_kernel_matches_plain(cuda, width, n):
+    rng = np.random.default_rng(n)
+    d = torch.from_numpy(np.minimum(rng.zipf(1.3, n) - 1, width - 1)
+                         .astype(np.int32)).to(cuda)
+    starts = bk._chunk_start_positions(bk._pad_chunks(d, n), width)
+    before = _cuda.launches['mtf_scan']
+    got = bk.mtf_scan(d, starts)
+    assert _cuda.launches['mtf_scan'] == before + 1
+    assert torch.equal(got, bk.mtf_scan_plain(d, starts))
+
+
+def test_alloc_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    fib = [1, 1]
+    while len(fib) < 29:
+        fib.append(fib[-1] + fib[-2])
+    tables = [fib[:22], fib, [5] * 258, [7], [1, 2], [0, 0, 4]]
+    tables += [sorted(rng.integers(0, 3000, m).tolist())
+               for m in (17, 130, 258)]
+    arrs = torch.zeros(len(tables), de.N, dtype=torch.int32)
+    for i, t in enumerate(tables):
+        arrs[i, :len(t)] = torch.tensor(t)
+    ms = torch.tensor([len(t) for t in tables], dtype=torch.int32)
+    got = de.alloc_lengths(arrs.to(cuda), ms.to(cuda))
+    assert torch.equal(got.cpu(), de.alloc_lengths_plain(arrs, ms))
+
+
+def test_wrappers_reject_bad_input(cuda):
+    d = torch.zeros(100, dtype=torch.int64, device=cuda)
+    starts = torch.zeros(1, 256, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bk.mtf_scan(d, starts)
+    with pytest.raises(ValueError):
+        de.alloc_lengths(torch.zeros(2, 10, dtype=torch.int32, device=cuda),
+                         torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def test_golden_sample5_on_card(cuda):
+    with open(os.path.join(GOLDEN, 'sample5_bzip2_9.bz2'), 'rb') as f:
+        gold = f.read()
+    before = dict(_cuda.launches)
+    assert cz.compress_file_device(bz2.decompress(gold), level=9) == gold
+    assert _cuda.launches['mtf_scan'] - before['mtf_scan'] == 3
+    assert _cuda.launches['alloc_lengths'] - before['alloc_lengths'] >= 3

@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Where the time of compressjs_tpu_torch's -9 encode goes, on one CUDA
+card.
+
+    python3 tools/torch_encode_profile.py [--out PATH]
+
+Encodes the decoded sample5x4 golden (8,522,560 B) with
+``compress_file_device(level=9)`` three times after a warm-up:
+
+1. untimed stages, wall clock only (the end-to-end number);
+2. with every stage wrapped in a timer that synchronises the card
+   before and after it, so each stage's wall time includes its device
+   work (the syncs cost a little; run 1 shows how much);
+3. under ``torch.profiler``: device time by kernel name and the card's
+   busy share of the run's wall time (union of kernel intervals).
+
+Prints one JSON object with the card's name and power limit, and also
+writes it to --out when given.
+"""
+
+import argparse
+import bz2
+import collections
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def card_line():
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def wrap_stages(totals, counts):
+    """Patch each stage function with a synchronising timer; returns an
+    undo list."""
+    from compressjs_tpu_torch.ops import block_kernels as bk
+    from compressjs_tpu_torch.ops import device_entropy as de
+    from compressjs_tpu_torch.parallel import pipeline as pl
+    targets = [
+        (pl, 'rle1_encode', 'host: RLE1 split'),
+        (pl, 'crc32_bzip2', 'host: block CRC'),
+        (pl, 'block_inputs', 'host->device block copy'),
+        (bk, 'bwt_block', 'device: rotation sort + BWT'),
+        (bk, 'mtf_encode', 'device: MTF (start tables + kernel)'),
+        (bk, 'rle2_encode', 'device: RLE2'),
+        (de, 'optimize_groups_dev', 'device: group optimisation'),
+        (de, 'payload_pack_words_dev', 'device: payload pack'),
+        (pl, '_device_block_header', 'host: block header bits'),
+    ]
+    undo = []
+    for mod, name, label in targets:
+        orig = getattr(mod, name)
+
+        def timed(*a, _orig=orig, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = _orig(*a, **k)
+            torch.cuda.synchronize()
+            totals[_label] += time.perf_counter() - t0
+            counts[_label] += 1
+            return r
+
+        functools.update_wrapper(timed, orig)
+        setattr(mod, name, timed)
+        undo.append((mod, name, orig))
+    return undo
+
+
+def busy_ms(events):
+    """Union of device kernel intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, cur_s, cur_e = 0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--out', help='also write the JSON here')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('torch_encode_profile: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import compressjs_tpu_torch as cz
+
+    with open(os.path.join(ROOT, 'tests', 'golden',
+                           'sample5x4_bzip2_9.bz2'), 'rb') as f:
+        gold = f.read()
+    data = bz2.decompress(gold)
+
+    def encode():
+        out = cz.compress_file_device(data, level=9)
+        torch.cuda.synchronize()
+        if out != gold:
+            raise AssertionError('encode differs from the golden')
+
+    encode()  # warm-up: kernel build, allocator caches
+    t0 = time.perf_counter()
+    encode()
+    wall = time.perf_counter() - t0
+
+    totals = collections.defaultdict(float)
+    counts = collections.Counter()
+    undo = wrap_stages(totals, counts)
+    try:
+        t0 = time.perf_counter()
+        encode()
+        staged_wall = time.perf_counter() - t0
+    finally:
+        for mod, name, orig in undo:
+            setattr(mod, name, orig)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        encode()
+        prof_wall = time.perf_counter() - t0
+    events = prof.events()
+    by_kernel = collections.defaultdict(float)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name[:80]] += (e.time_range.end -
+                                       e.time_range.start) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    busy = busy_ms(events)
+
+    result = {
+        'card': card_line(),
+        'device': torch.cuda.get_device_name(0),
+        'input_bytes': len(data),
+        'encode_wall_s': wall,
+        'encode_mb_s': len(data) / wall / 1e6,
+        'staged_wall_s': staged_wall,
+        'stages_s': {k: totals[k] for k in sorted(totals,
+                                                  key=lambda k: -totals[k])},
+        'stage_calls': dict(counts),
+        'profiled_wall_s': prof_wall,
+        'device_busy_ms': busy if by_kernel else 'not measured',
+        'device_idle_share': (1 - busy / (prof_wall * 1e3) if by_kernel
+                              else 'not measured'),
+        'device_ms_by_kernel': dict(top),
+    }
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, 'w') as f:
+            f.write(text + '\n')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
