@@ -6,8 +6,9 @@
 Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, holds each
 kernel equal to its plain version on the card at main-path shapes,
 re-encodes the in-repo bzip2 goldens at -9 through
-``compress_file_device`` and checks the bytes, times the encode and each
-kernel, and prints:
+``compress_file_device`` and decodes them through
+``decompress_file_device``, checks the bytes, times the encode, the
+decode and each kernel, and prints:
 
 * the card's name and power limit, as nvidia-smi reports them;
 * one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -68,6 +69,25 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cuda_ms_cold(fn, reps, dev):
+    """Mean device milliseconds of one fn() launch with a cold L2: 256
+    MB (five times the H100's 50 MB L2) are written between launches,
+    outside the timed pair of events."""
+    scrub = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    pairs = []
+    fn()
+    for _ in range(reps):
+        scrub.fill_(len(pairs))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def bound(nbytes, nops):
@@ -212,6 +232,154 @@ def record_tables(fn):
     return seen
 
 
+def first_block_maps(comp, dev):
+    """The walk of the first block of a -9 stream on the card, up to its
+    compositions: (nxt, the (a, b, blo, bhi) of every composition
+    `_power_k` makes, F = nxt^k, the selectors, sub-steps per selector).
+    These are the compose and chase kernels' inputs on the main path."""
+    from compressjs_tpu_torch.host.bzip2_parse import _parse_candidates
+    from compressjs_tpu_torch.ops import device_huffman as dh
+    from compressjs_tpu_torch.parallel.decode import _walk_inputs
+    data = np.frombuffer(comp, np.uint8)
+    dbuf_size, _, cands, _ = _parse_candidates(data)
+    walk = _walk_inputs(data, cands[0], cands[1], dbuf_size, dev)['walk']
+    payload, bit0, nbits_cap, _, limits, _, _, mins, sel = walk[:9]
+    _, _, nxt = dh._next_maps(payload, bit0, nbits_cap, limits, mins)
+    calls = []
+    orig = dh.compose_windowed
+
+    def recorder(a, b, blo, bhi):
+        calls.append((a, b, blo, bhi))
+        return orig(a, b, blo, bhi)
+
+    dh.compose_windowed = recorder
+    try:
+        F = dh._power_k(nxt, dh.POWER_K_DEFAULT)
+    finally:
+        dh.compose_windowed = orig
+    return nxt, calls, F, sel, dh.GROUP_SIZE // dh.POWER_K_DEFAULT
+
+
+def check_compose(calls, dev):
+    """Kernel vs plain on every main-path composition and on random maps
+    whose jumps leave the window on both sides; returns (max_abs_err,
+    kernel ms, wrapper ms, plain ms, bound ms, bound_by, library ms,
+    kernel ms with a cold L2), each the mean over the main-path
+    compositions."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import compose as cm
+    G, cap = calls[0][0].shape
+    rng = np.random.default_rng(99)
+    pos = np.arange(cap)[None, :]
+    rand_a = torch.from_numpy(rng.integers(0, cap, (G, cap)).astype(
+        np.int32)).to(dev)
+    rand_b = torch.from_numpy(np.clip(
+        pos + rng.integers(-100, 400, (G, cap)), 0, cap - 1).astype(
+            np.int32)).to(dev)
+    err = 0
+    for a, b, blo, bhi in calls + [(rand_a, rand_b, 2, 40),
+                                   (rand_a, rand_b, 33, 635)]:
+        got = cm.compose_windowed(a, b, blo, bhi)
+        want = cm.compose_windowed_plain(a, b, blo, bhi)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+    if err:
+        raise AssertionError('compose kernel differs from its plain '
+                             'version: max abs err %d' % err)
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+    sums = np.zeros(6)
+    b_by = 'bytes'
+    for a, b, blo, bhi in calls:
+        out = torch.empty_like(a)
+
+        def launch():  # the kernel alone, outside the wrapper
+            _cuda.check(lib.cz_compose_windowed(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), G, cap, blo,
+                bhi, stream), 'compose_windowed')
+
+        k_ms = cuda_ms(launch, 20)
+        if not torch.equal(out, cm.compose_windowed_plain(a, b, blo, bhi)):
+            raise AssertionError('timed compose launches differ')
+        cold = cuda_ms_cold(launch, 20, dev)
+        w_ms = cuda_ms(lambda: cm.compose_windowed(a, b, blo, bhi), 20)
+        p_ms = cuda_ms(lambda: cm.compose_windowed_plain(a, b, blo, bhi),
+                       5)
+        # the library yardstick: one torch.gather on the padded map
+        p = torch.arange(cap, device=dev)
+        idx = p + (b.long() - p).clamp(blo, bhi)
+        a_pad = torch.cat([a, a[:, -1:].expand(G, bhi + 1)], 1)
+        l_ms = cuda_ms(lambda: torch.gather(a_pad, 1, idx), 20)
+        # each distinct input read once, c written once (a squaring reads
+        # one map as both a and b); a few integer operations per element
+        maps = 2 if a.data_ptr() == b.data_ptr() else 3
+        c_b_ms, c_b_by = bound(maps * 4 * G * cap, 8 * G * cap)
+        b_by = c_b_by if c_b_by == 'operations' else b_by
+        print('  window [%d, %d]: kernel %.4f ms (cold L2 %.4f), wrapper '
+              '%.4f ms, plain %.3f ms, torch.gather %.4f ms, bound %.5f ms '
+              '(%d maps, %s)' % (blo, bhi, k_ms, cold, w_ms, p_ms, l_ms,
+                                 c_b_ms, maps, c_b_by))
+        sums += [k_ms, w_ms, p_ms, c_b_ms, l_ms, cold]
+    k_ms, w_ms, p_ms, c_b_ms, l_ms, cold = sums / len(calls)
+    return err, k_ms, w_ms, p_ms, c_b_ms, b_by, l_ms, cold
+
+
+def check_chase(F, sel, sub, dev):
+    """Kernel vs plain on the main-path chase; returns (max_abs_err,
+    kernel ms, wrapper ms, plain ms, bound ms, bound_by, latency bound
+    ms, ns per dependent load)."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import device_huffman as dh
+    got = dh.selector_chase(F, sel, sub)
+    want = dh.selector_chase_plain(F, sel, sub)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError('chase kernel differs from its plain version: '
+                             'max abs err %d' % err)
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+    out = torch.empty_like(sel)
+    G, cap = F.shape
+
+    def launch():  # the kernel alone, outside the wrapper
+        _cuda.check(lib.cz_selector_chase(
+            F.data_ptr(), sel.data_ptr(), out.data_ptr(), G, cap,
+            sel.shape[0], sub, stream), 'selector_chase')
+
+    ms = cuda_ms(launch, 5)
+    if not torch.equal(out, want):
+        raise AssertionError('timed chase launches differ')
+    wrapper = cuda_ms(lambda: dh.selector_chase(F, sel, sub), 5)
+    plain = cuda_ms(lambda: dh.selector_chase_plain(F, sel, sub), 1)
+    # the entries of F the chain reads, the selectors, the starts; a
+    # multiply-add, two compares per step
+    steps = sel.shape[0] * sub
+    b_ms, b_by = bound(4 * (steps + 2 * sel.shape[0]), 4 * steps)
+    # what bounds the chain is the latency of its dependent loads: time
+    # one thread's pointer chase at the same step count over an array of
+    # F's size, a random single cycle held in L2 (the same kernel with
+    # one row and every selector 0, so each step is p <- ring[p])
+    n = G * cap
+    order = np.random.default_rng(7).permutation(n)
+    ring = np.empty(n, dtype=np.int32)
+    ring[order] = np.roll(order, -1)
+    ring = torch.from_numpy(ring).to(dev)
+    zeros = torch.zeros_like(sel)
+    probe = torch.empty_like(sel)
+
+    def chase_ring():
+        _cuda.check(lib.cz_selector_chase(
+            ring.data_ptr(), zeros.data_ptr(), probe.data_ptr(), 1, n,
+            sel.shape[0], sub, stream), 'selector_chase')
+
+    ring.sum()  # pull the ring into L2
+    lat_ms = cuda_ms(chase_ring, 5)
+    if not torch.equal(probe, dh.selector_chase_plain(ring.view(1, n),
+                                                      zeros, sub)):
+        raise AssertionError('latency probe differs from its plain chase')
+    return err, ms, wrapper, plain, b_ms, b_by, lat_ms, \
+        lat_ms * 1e6 / steps
+
+
 def main():
     t_start = time.perf_counter()
     # a hang anywhere prints every thread's stack and exits non-zero
@@ -261,7 +429,24 @@ def main():
     print('  %d launches of tables: kernel %.4f ms, wrapper %.4f ms, '
           'plain %.3f ms, bound %.6f ms (%s)' % ((len(tables),) + alloc[1:]))
 
-    phase('main path: sample5x4 at -9')
+    phase('compose kernel vs plain version')
+    nxt, calls, F, sel, sub = first_block_maps(s5_comp, dev)
+    print('  sample5 first block: maps %s, %d compositions, windows %s'
+          % (tuple(nxt.shape), len(calls), [c[2:] for c in calls]))
+    comp = check_compose(calls, dev)
+    print('  mean of the main-path launches: kernel %.4f ms, wrapper '
+          '%.4f ms, plain %.3f ms, bound %.5f ms (%s), torch.gather %.4f '
+          'ms, kernel with a cold L2 %.4f ms' % comp[1:])
+
+    phase('chase kernel vs plain version')
+    chase = check_chase(F, sel, sub, dev)
+    print('  %d selectors x %d steps: kernel %.4f ms, wrapper %.4f ms, '
+          'plain %.3f ms, bound %.6f ms (%s); one-thread chase of a '
+          'random ring of F\'s size at the same steps %.4f ms (%.1f ns '
+          'per dependent load)' % ((sel.shape[0], sub) + chase[1:]))
+    del nxt, calls, F
+
+    phase('main path: sample5x4 -9 encode')
     for name in _cuda.launches:
         _cuda.launches[name] = 0
     out = cz.compress_file_device(s5x4, level=9, device='cuda')
@@ -278,7 +463,25 @@ def main():
             launches['alloc_lengths'] < n_blocks:
         raise AssertionError('main path skipped a kernel: %s' % launches)
 
+    phase('main path: sample5x4 -9 decode')
+    from compressjs_tpu_torch.host.bzip2_parse import _parse_candidates
+    for name in _cuda.launches:
+        _cuda.launches[name] = 0
+    out = cz.decompress_file_device(s5x4_comp, device='cuda')
+    torch.cuda.synchronize()
+    dec_launches = dict(_cuda.launches)
+    n_dec = len(_parse_candidates(np.frombuffer(s5x4_comp, np.uint8))[2])
+    print('  %d bytes -> %d bytes, %d blocks, launches %s'
+          % (len(s5x4_comp), len(out), n_dec, dec_launches))
+    if out != s5x4:
+        raise AssertionError('sample5x4 decode differs from bz2')
+    if dec_launches['compose_windowed'] != 4 * n_dec or \
+            dec_launches['selector_chase'] != n_dec:
+        raise AssertionError('decode skipped a kernel: %s' % dec_launches)
+
     phase('more inputs')
+    if cz.decompress_file_device(s5_comp, device='cuda') != s5:
+        raise AssertionError('sample5 decode differs from bz2')
     out = cz.compress_file_device(s5, level=9, device='cuda')
     if out != s5_comp or bz2.decompress(out) != s5:
         raise AssertionError('sample5 encode differs from the golden')
@@ -289,8 +492,11 @@ def main():
         out = cz.compress_file_device(data, level=9, device='cuda')
         if bz2.decompress(out) != data:
             raise AssertionError('%s input does not round-trip' % name)
-        print('  %s: %d -> %d bytes, round-trips' % (name, len(data),
-                                                     len(out)))
+        if cz.decompress_file_device(bz2.compress(data, 9)) != data:
+            raise AssertionError('%s input: bz2 stream decodes wrong'
+                                 % name)
+        print('  %s: %d -> %d bytes, round-trips; its bz2 -9 stream '
+              'decodes' % (name, len(data), len(out)))
 
     phase('timing')
     t0 = torch.cuda.Event(enable_timing=True)
@@ -307,6 +513,18 @@ def main():
     print('  sample5x4 -9 encode: wall %.3f s (%.3f MB/s), CUDA events '
           '%.3f s' % (wall, len(s5x4) / wall / 1e6,
                       t0.elapsed_time(t1) / 1e3))
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    t0.record()
+    out = cz.decompress_file_device(s5x4_comp, device='cuda')
+    t1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    if out != s5x4:
+        raise AssertionError('timed sample5x4 decode differs')
+    print('  sample5x4 -9 decode: wall %.3f s (%.3f MB/s of output), CUDA '
+          'events %.3f s' % (wall, len(s5x4) / wall / 1e6,
+                             t0.elapsed_time(t1) / 1e3))
 
     kernels = [
         {'name': 'mtf_scan', 'route': 'cuda',
@@ -323,6 +541,22 @@ def main():
          'launches': launches['alloc_lengths'],
          'max_abs_err': alloc[0], 'ms': alloc[1], 'plain_ms': alloc[3],
          'bound_ms': alloc[4], 'bound_by': alloc[5], 'library_ms': None},
+        {'name': 'compose_windowed', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/compose_windowed.cu',
+         'replaces': 'compressjs_tpu/ops/pallas_compose.py:61',
+         'launches': dec_launches['compose_windowed'],
+         'max_abs_err': comp[0], 'ms': comp[1], 'plain_ms': comp[3],
+         'bound_ms': comp[4], 'bound_by': comp[5], 'library_ms': comp[6],
+         'cold_l2_ms': comp[7]},
+        {'name': 'selector_chase', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/selector_chase.cu',
+         'replaces': 'compressjs_tpu/ops/device_huffman.py:291 (lax.scan, '
+                     'no TPU kernel)',
+         'launches': dec_launches['selector_chase'],
+         'max_abs_err': chase[0], 'ms': chase[1], 'plain_ms': chase[3],
+         'bound_ms': chase[4], 'bound_by': chase[5], 'library_ms': None,
+         # a chain of dependent loads: its floor is their latency
+         'latency_bound_ms': chase[6], 'ns_per_dependent_load': chase[7]},
     ]
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)

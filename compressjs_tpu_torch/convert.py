@@ -1,5 +1,6 @@
 """What crosses from the JAX package to this one: a compressor has no
-weights, so it is each block's inputs and the encoder's constants."""
+weights, so it is each block's inputs, the encoder's constants and the
+decoder's tables."""
 
 from __future__ import annotations
 
@@ -15,3 +16,12 @@ def block_inputs(block_u8, remap_i32, eob, device):
     block = torch.from_numpy(np.ascontiguousarray(block_u8, dtype=np.uint8))
     remap = torch.from_numpy(np.asarray(remap_i32, dtype=np.int64))
     return block.to(device), remap.to(device), int(eob)
+
+
+def decode_tables(limits, bases, perms, mins, device):
+    """The decode tables ``tables_for_device`` returns (numpy, or the JAX
+    package's arrays through ``np.asarray``) as this package's int32
+    tensors on `device`, in the same order: a decoder has no weights, so
+    these are what both packages are fed."""
+    return tuple(torch.from_numpy(np.array(x, dtype=np.int32))
+                 .to(device) for x in (limits, bases, perms, mins))

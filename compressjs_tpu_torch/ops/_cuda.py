@@ -21,7 +21,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu')
+SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu', 'compose_windowed.cu',
+           'selector_chase.cu')
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 CFLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                  '-Xptxas', '-v']
@@ -30,7 +31,8 @@ _lock = threading.Lock()
 _lib = None
 # kernel launches so far, by kernel: each wrapper adds one where it calls
 # its kernel's C entry point, and nowhere else
-launches = {'mtf_scan': 0, 'alloc_lengths': 0}
+launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'compose_windowed': 0,
+            'selector_chase': 0}
 # what the last build did: wall seconds and nvcc's messages (the
 # -Xptxas -v register and shared-memory lines); empty if reused
 build_info = {'seconds': 0.0, 'log': '', 'path': None}
@@ -92,6 +94,10 @@ def _bind(lib):
     lib.cz_mtf_scan.restype = i32
     lib.cz_alloc_lengths.argtypes = [p, p, p, p, i32, i32, p]
     lib.cz_alloc_lengths.restype = i32
+    lib.cz_compose_windowed.argtypes = [p, p, p, i32, i64, i32, i32, p]
+    lib.cz_compose_windowed.restype = i32
+    lib.cz_selector_chase.argtypes = [p, p, p, i32, i64, i32, i32, p]
+    lib.cz_selector_chase.restype = i32
     return lib
 
 

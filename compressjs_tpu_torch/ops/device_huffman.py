@@ -1,0 +1,267 @@
+"""Tensor build of the parallel canonical-Huffman decode of a bzip2 block
+and of the whole block decode (counterpart of
+``compressjs_tpu.ops.device_huffman``).
+
+The sequential bit-by-bit walk becomes four parallel stages:
+
+1. speculative decode at every bit offset: under each group's table the
+   code length at offset p is the smallest L >= min_len with
+   ``bits[p:p+L] <= limit[L]``, so ``nxt_g[p] = p + len_g[p]``;
+2. `_power_k`: ``F_g = nxt_g^k`` by a squaring ladder of windowed
+   compositions (`ops.compose.compose_windowed`, a CUDA kernel on the
+   card);
+3. `selector_chase`: chunk-boundary bit positions follow
+   ``p <- F[sel[c]][p]``, ``50 / k`` times per selector -- one dependent
+   chain, run by one CUDA thread (``csrc/selector_chase.cu``) on the card
+   and by its plain version, a host loop, for a CPU tensor;
+4. every 50-symbol chunk then decodes in lock-step, 50 vector steps.
+
+`decode_block_full_dev` follows the walk with RLE2 undo, MTF undo, the
+used-alphabet map, the inverse BWT and RLE1 undo (``ops.block_decode``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda
+from .block_decode import (inverse_bwt_block_masked, mtf_decode,
+                           rle1_decode_dev, rle2_decode)
+from .compose import compose_windowed
+
+MAX_CODE_BITS = 20     # bzip2 code lengths are 1..20
+GROUP_SIZE = 50
+BIG_LIMIT = 1 << 28    # stands in for the int64-max limit sentinel
+# composition power: F = nxt^10 takes 4 compositions and 5 chase steps
+# per selector
+POWER_K_DEFAULT = 10
+_MASK32 = 0xFFFFFFFF
+
+
+def tables_for_device(groups, n_groups):
+    """Stack `host.bzip2_parse._decode_tables` outputs into the padded
+    int32 numpy arrays (limits (G, 22), bases (G, 21), perms (G, 258),
+    mins (G,)) that `huffman_walk_dev` takes, through
+    ``convert.decode_tables``.  The int64 limit sentinel clamps to
+    BIG_LIMIT: codes are below 2^20, so any larger limit means 'always'."""
+    limits = np.full((n_groups, MAX_CODE_BITS + 2), -1, dtype=np.int64)
+    bases = np.zeros((n_groups, MAX_CODE_BITS + 1), dtype=np.int64)
+    perms = np.zeros((n_groups, 258), dtype=np.int32)
+    mins = np.zeros(n_groups, dtype=np.int32)
+    for g, (min_len, max_len, limit, base, permute) in enumerate(groups):
+        lim = np.asarray(limit[:MAX_CODE_BITS + 2], dtype=np.int64)
+        limits[g, :lim.shape[0]] = lim
+        ba = np.asarray(base[:MAX_CODE_BITS + 1], dtype=np.int64)
+        bases[g, :ba.shape[0]] = ba
+        pe = np.asarray(permute[:258], dtype=np.int32)
+        perms[g, :pe.shape[0]] = pe
+        mins[g] = min_len
+        # lengths below min_len must never match
+        limits[g, :min_len] = -1
+    limits = np.clip(limits, -1, BIG_LIMIT).astype(np.int32)
+    bases = np.clip(bases, -(1 << 28), BIG_LIMIT).astype(np.int32)
+    return limits, bases, perms, mins
+
+
+def payload_words(payload_bytes, n_words):
+    """Payload bytes packed MSB-first into 32-bit words held in int64,
+    zero-padded to n_words (bits past the data read as zero)."""
+    cap = n_words * 4
+    take = min(payload_bytes.shape[0], cap)
+    q = torch.zeros(cap, dtype=torch.int64, device=payload_bytes.device)
+    q[:take] = payload_bytes[:take]
+    q = q.view(n_words, 4)
+    return (q[:, 0] << 24) | (q[:, 1] << 16) | (q[:, 2] << 8) | q[:, 3]
+
+
+def _window_vals(words, bit0, nbits):
+    """val[p] = the MAX_CODE_BITS bits starting at bit bit0 + p of the
+    words, as int32.  The uint32 word arithmetic runs in int64; the mask
+    drops what the shift carries above bit 31, which uint32 would wrap."""
+    p = torch.arange(nbits, device=words.device) + bit0
+    w = p >> 5
+    sh = p & 31
+    padded = torch.cat([words, words.new_zeros(1)])
+    left = padded[w]
+    right = padded[w + 1]
+    lo = torch.where(sh > 0, right >> ((32 - sh) & 31), 0)
+    return ((((left << sh) & _MASK32) | lo)
+            >> (32 - MAX_CODE_BITS)).to(torch.int32)
+
+
+def _group_lengths(val, limits, mins):
+    """(G, n) int32 code length at every offset under each group's
+    table: the smallest L >= mins[g] with (val >> (W-L)) <= limits[g, L].
+    Offsets where no code fits get MAX_CODE_BITS (the block CRC catches
+    a walk that uses one)."""
+    G = limits.shape[0]
+    ln = torch.full((G, val.shape[0]), MAX_CODE_BITS, dtype=torch.int32,
+                    device=val.device)
+    # longest first, so the shortest fitting length is written last
+    for L in range(MAX_CODE_BITS, 0, -1):
+        j = (val >> (MAX_CODE_BITS - L))[None, :]
+        ok = (j <= limits[:, L:L + 1]) & (mins <= L)[:, None]
+        ln = torch.where(ok, L, ln)
+    return ln
+
+
+def _next_maps(payload_bytes, bit0, nbits_cap, limits, min_lens):
+    """Stage 1 of the walk: (val, lens, nxt) -- the code window at every
+    payload bit, each group's code length there, and the next symbol's
+    bit nxt[g, p] = p + lens[g, p], clamped into the cap."""
+    n_words = (nbits_cap + MAX_CODE_BITS + 31) // 32 + 1
+    val = _window_vals(payload_words(payload_bytes, n_words), bit0,
+                       nbits_cap)
+    lens = _group_lengths(val, limits, min_lens)
+    nxt = (torch.arange(nbits_cap, dtype=torch.int32,
+                        device=payload_bytes.device)
+           + lens).clamp_(0, nbits_cap - 1)
+    return val, lens, nxt
+
+
+def _power_k(nxt, k):
+    """nxt composed k times (k divides 50): a squaring ladder, then the
+    remaining powers combined largest first, each composition with the
+    window [j, 20j] of its inner map nxt^j."""
+    if k == 1:
+        return nxt
+    p = {1: nxt}
+    kk = 1
+    while 2 * kk <= k:
+        p[2 * kk] = compose_windowed(p[kk], p[kk], kk, 20 * kk)
+        kk *= 2
+    out, need = None, k
+    for kk in sorted(p, reverse=True):
+        if kk <= need:
+            out = p[kk] if out is None else compose_windowed(
+                out, p[kk], kk, 20 * kk)
+            need -= kk
+    return out
+
+
+def selector_chase_plain(F, sel, sub):
+    """Plain version of `selector_chase`: the scalar loop on the host."""
+    cap = F.shape[1]
+    flat = F.reshape(-1).cpu().numpy()
+    last = flat.shape[0] - 1
+    out = np.empty(sel.shape[0], dtype=np.int32)
+    p = 0
+    for c, s in enumerate(sel.cpu().tolist()):
+        out[c] = p
+        row = s * cap
+        for _ in range(sub):
+            p = int(flat[min(max(row + p, 0), last)])
+    return torch.from_numpy(out).to(F.device)
+
+
+def selector_chase(F, sel, sub):
+    """Start bit of every 50-symbol chunk: starting at p = 0, chunk c
+    starts at p and then p <- F[sel[c], p], sub times (F = nxt^(50/sub)).
+    F (G, cap) int32, sel (s_cap,) int32; returns (s_cap,) int32.  The
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if F.device.type == 'cpu':
+        return selector_chase_plain(F, sel, sub)
+    _cuda.require_cuda(F, 'selector_chase')
+    if (F.dim() != 2 or sel.dim() != 1 or F.dtype != torch.int32
+            or sel.dtype != torch.int32 or sel.device != F.device
+            or not F.is_contiguous() or not sel.is_contiguous()
+            or sub < 1):
+        raise ValueError('selector_chase takes a contiguous (G, cap) and '
+                         '(s_cap,) int32 tensor on one device, sub >= 1')
+    G, cap = F.shape
+    starts = torch.empty_like(sel)
+    lib = _cuda.lib()
+    _cuda.launches['selector_chase'] += 1
+    _cuda.check(lib.cz_selector_chase(F.data_ptr(), sel.data_ptr(),
+                                      starts.data_ptr(), G, cap,
+                                      sel.shape[0], sub,
+                                      _cuda.stream_handle(F.device)),
+                'selector_chase')
+    return starts
+
+
+def huffman_walk_dev(payload_bytes, bit0, nbits_cap, s_cap, limits, bases,
+                     permutes, min_lens, selectors, n_selectors, eob):
+    """Decode a bzip2 block's Huffman payload into its symbol stream.
+
+    payload_bytes: uint8 tensor from the byte holding the first symbol
+        bit; bit0 = that bit's offset in the byte.
+    nbits_cap / s_cap: caps on payload bits and selector count.
+    limits, bases, permutes, min_lens: `tables_for_device` output on the
+        payload's device (``convert.decode_tables``).
+    selectors: (>= s_cap,) int32 tensor of per-chunk groups;
+        n_selectors and eob (the end-of-block symbol) are ints.
+
+    Returns (syms int32[s_cap*50], count, end_bit): the symbol stream,
+    the EOB's index (0-dim tensor) and the bit just past the EOB counted
+    from payload_bytes' bit 0 (0-dim tensor)."""
+    dev = payload_bytes.device
+    val, lens, nxt = _next_maps(payload_bytes, bit0, nbits_cap, limits,
+                                min_lens)
+    F = _power_k(nxt, POWER_K_DEFAULT)
+    sel = selectors[:s_cap].to(torch.int32).contiguous()
+    starts = selector_chase(F, sel, GROUP_SIZE // POWER_K_DEFAULT)
+
+    # chunk-parallel 50-symbol walk; a step's code length is the one
+    # stage 1 already found at that offset under the chunk's group
+    sel64 = sel.to(torch.int64)
+    len_off = sel64 * nbits_cap
+    base_off = sel64 * bases.shape[1]
+    perm_w = permutes.shape[1]
+    perm_off = sel64 * perm_w
+    lens_flat, base_flat, perm_flat = (lens.view(-1), bases.reshape(-1),
+                                       permutes.reshape(-1))
+    pos = starts.to(torch.int64)
+    syms = torch.empty((GROUP_SIZE, s_cap), dtype=torch.int32, device=dev)
+    ends = torch.empty((GROUP_SIZE, s_cap), dtype=torch.int64, device=dev)
+    for t in range(GROUP_SIZE):
+        ln = lens_flat[len_off + pos]
+        j = (val[pos] >> (MAX_CODE_BITS - ln)) - base_flat[base_off + ln]
+        syms[t] = perm_flat[perm_off + j.clamp(0, perm_w - 1)]
+        ends[t] = pos + ln
+        pos = ends[t].clamp(0, nbits_cap - 1)
+    syms = syms.T.reshape(-1)
+    ends = ends.T.reshape(-1)
+    valid = torch.arange(s_cap * GROUP_SIZE, device=dev) < \
+        n_selectors * GROUP_SIZE
+    count = torch.argmax(((syms == eob) & valid).to(torch.int32))
+    return syms, count, ends[count.view(1)][0] + bit0
+
+
+def bwt_column(syms, count, dbuf_cap, sym_to_byte):
+    """RLE2 undo, MTF undo and the used-alphabet map: the block's BWT
+    column U (uint8[dbuf_cap]) and its length (0-dim tensor).
+    sym_to_byte: uint8 tensor of 256 entries."""
+    idx, total = rle2_decode(syms, dbuf_cap, count)
+    dense = mtf_decode(idx, dbuf_cap)
+    return sym_to_byte[dense.to(torch.int64)], total
+
+
+def block_bytes(U, cap, total, pidx, out_cap=None):
+    """Inverse BWT and RLE1 undo of the BWT column U[:total] (total may
+    be a 0-dim tensor) with origPtr pidx: (out uint8[out_cap], count);
+    out_cap=None sizes the output to the exact byte count (one host
+    sync)."""
+    t0 = torch.as_tensor(pidx, device=U.device).clamp(max=total - 1)
+    packed = inverse_bwt_block_masked(U, cap, total, t0)
+    return rle1_decode_dev(packed, out_cap, total)
+
+
+def decode_block_full_dev(payload_bytes, bit0, nbits_cap, s_cap, dbuf_cap,
+                          out_cap, limits, bases, permutes, min_lens,
+                          selectors, n_selectors, eob, sym_to_byte, pidx):
+    """All-device bzip2 block decode: Huffman walk -> RLE2 undo -> MTF
+    undo -> used-alphabet map (`bwt_column`) -> inverse BWT -> RLE1 undo
+    (`block_bytes`).
+
+    Returns (out uint8[out_cap], out_count, end_bit); out_cap=None sizes
+    the output to the exact byte count (one host sync).  pidx is the
+    block's origPtr.  A corrupt payload gives wrong bytes, which the
+    caller's CRC check catches."""
+    syms, count, end_bit = huffman_walk_dev(
+        payload_bytes, bit0, nbits_cap, s_cap, limits, bases, permutes,
+        min_lens, selectors, n_selectors, eob)
+    U, total = bwt_column(syms, count, dbuf_cap, sym_to_byte)
+    out, out_count = block_bytes(U, dbuf_cap, total, pidx, out_cap)
+    return out, out_count, end_bit

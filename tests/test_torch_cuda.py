@@ -1,5 +1,6 @@
 """compressjs_tpu_torch's CUDA kernels on the card, each against its
-plain version, and the -9 golden through the whole encode on the card.
+plain version, and the -9 golden through the whole encode and decode on
+the card.
 Run on a machine with a CUDA card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,7 +18,9 @@ import torch
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.ops import _cuda
 from compressjs_tpu_torch.ops import block_kernels as bk
+from compressjs_tpu_torch.ops import compose as cm
 from compressjs_tpu_torch.ops import device_entropy as de
+from compressjs_tpu_torch.ops import device_huffman as dh
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +79,55 @@ def test_golden_sample5_on_card(cuda):
     assert cz.compress_file_device(bz2.decompress(gold), level=9) == gold
     assert _cuda.launches['mtf_scan'] - before['mtf_scan'] == 3
     assert _cuda.launches['alloc_lengths'] - before['alloc_lengths'] >= 3
+
+
+@pytest.mark.parametrize('G,cap,blo,bhi', [
+    (6, 8192, 2, 40), (2, 8192, 1, 20), (6, 8192, 33, 635),
+    (1, 100, 1, 20), (6, 1 << 20, 4, 80)])
+def test_compose_kernel_matches_plain(cuda, G, cap, blo, bhi):
+    rng = np.random.default_rng(cap + bhi)
+    pos = np.arange(cap)[None, :]
+    a = np.minimum(pos + rng.integers(blo, bhi + 1, (G, cap)), cap - 1)
+    # jumps inside and outside the window, on both sides
+    b = np.clip(pos + rng.integers(-blo - 5, 2 * bhi, (G, cap)), 0, cap - 1)
+    a, b = (torch.from_numpy(x.astype(np.int32)).to(cuda) for x in (a, b))
+    before = _cuda.launches['compose_windowed']
+    got = cm.compose_windowed(a, b, blo, bhi)
+    assert _cuda.launches['compose_windowed'] == before + 1
+    assert torch.equal(got, cm.compose_windowed_plain(a, b, blo, bhi))
+
+
+@pytest.mark.parametrize('sub', [1, 5, 25])
+def test_chase_kernel_matches_plain(cuda, sub):
+    rng = np.random.default_rng(sub)
+    G, cap, s_cap = 6, 1 << 16, 512
+    F = np.minimum(np.arange(cap)[None, :] + rng.integers(
+        1, 20 * (50 // sub) + 1, (G, cap)), cap - 1)
+    F = torch.from_numpy(F.astype(np.int32)).to(cuda)
+    sel = torch.from_numpy(rng.integers(0, G, s_cap).astype(
+        np.int32)).to(cuda)
+    before = _cuda.launches['selector_chase']
+    got = dh.selector_chase(F, sel, sub)
+    assert _cuda.launches['selector_chase'] == before + 1
+    assert torch.equal(got, dh.selector_chase_plain(F, sel, sub))
+
+
+def test_decode_wrappers_reject_bad_input(cuda):
+    a = torch.zeros(2, 64, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        cm.compose_windowed(a, a, 1, 20)
+    with pytest.raises(ValueError):
+        cm.compose_windowed(a.int(), a.int(), 5, 2)
+    with pytest.raises(ValueError):
+        dh.selector_chase(a.int(), torch.zeros(4, dtype=torch.int64,
+                                               device=cuda), 5)
+
+
+def test_decode_golden_sample5_on_card(cuda):
+    with open(os.path.join(GOLDEN, 'sample5_bzip2_9.bz2'), 'rb') as f:
+        gold = f.read()
+    before = dict(_cuda.launches)
+    assert cz.decompress_file_device(gold) == bz2.decompress(gold)
+    assert _cuda.launches['compose_windowed'] - \
+        before['compose_windowed'] == 4 * 3
+    assert _cuda.launches['selector_chase'] - before['selector_chase'] == 3

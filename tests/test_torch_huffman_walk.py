@@ -1,0 +1,184 @@
+"""compressjs_tpu_torch's parallel Huffman walk (ops/device_huffman.py)
+and host header parse (host/bzip2_parse.py) against the JAX package's
+``ops.device_huffman`` and ``codecs.bzip2``, on the CPU.  Blocks are the
+first block of streams that ``compressjs_tpu.codecs.bzip2`` writes from
+seeded data.  Integer code: equality is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from compressjs_tpu.codecs import bzip2 as jbz
+from compressjs_tpu.ops import device_huffman as jdh
+from compressjs_tpu_torch import convert
+from compressjs_tpu_torch.host import bzip2_parse as bp
+from compressjs_tpu_torch.ops import device_huffman as dh
+
+
+def _text_like(seed, n):
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 123, rng.integers(1, 9)))
+             for _ in range(500)]
+    out = b' '.join(words[i] for i in rng.integers(0, 500, n))
+    return out[:n]
+
+
+def _data(kind):
+    rng = np.random.default_rng(len(kind))
+    if kind == 'text':
+        return _text_like(1, 40000)
+    if kind == 'all_bytes':
+        return bytes(range(256)) * 60
+    if kind == 'runs':
+        vals = rng.integers(0, 256, 400).astype(np.uint8)
+        return np.repeat(vals, rng.choice([1, 4, 5, 70, 300], 400)).tobytes()
+    if kind == 'random':
+        return rng.integers(0, 256, 30000).astype(np.uint8).tobytes()
+    raise ValueError(kind)
+
+
+KINDS = ['text', 'all_bytes', 'runs', 'random']
+
+
+def _first_block(data, level=1):
+    """(stream, header parse, symbol start bit) of the first block; the
+    JAX package's and the port's header parses must agree."""
+    comp = np.frombuffer(bytes(jbz.compress_file(data, props=level)),
+                         dtype=np.uint8)
+    parsed = []
+    for mod in (jbz, bp):
+        r = mod._BitReader(comp)
+        dbuf = mod._start(r)
+        assert r.read_bits(48) == 0x314159265359
+        r.read_bits(32)
+        parsed.append((mod._parse_block_header(r, dbuf), r.pos))
+    (jh, jpos), (ph, ppos) = parsed
+    assert jpos == ppos
+    assert jh[:3] == ph[:3]
+    for jg, pg in zip(jh[3], ph[3]):
+        assert jg == pg
+    return comp, jh, ppos
+
+
+@pytest.mark.parametrize('kind', KINDS)
+def test_tables_for_device(kind):
+    _, (_, _, _, groups), _ = _first_block(_data(kind))
+    want = jdh.tables_for_device(groups, len(groups))
+    got = dh.tables_for_device(groups, len(groups))
+    for w, g, t in zip(want, got, convert.decode_tables(
+            *[np.asarray(x) for x in want], 'cpu')):
+        assert g.dtype == np.int32 and t.dtype == torch.int32
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(t.numpy(), g)
+
+
+@pytest.mark.parametrize('bit0', range(8))
+def test_payload_words_and_window_vals(bit0):
+    """Bytes with the top bit set would leak past bit 31 of the int64
+    word math without its mask."""
+    rng = np.random.default_rng(bit0)
+    raw = rng.integers(0, 256, 300).astype(np.uint8)
+    raw[::7] = 0xFF
+    raw[1::11] = 0x80
+    nbits = 2048 - 8
+    n_words = (nbits + 20 + 31) // 32 + 1
+    jw = jdh.payload_words(jnp.asarray(raw), n_words)
+    pw = dh.payload_words(torch.from_numpy(raw), n_words)
+    np.testing.assert_array_equal(pw.numpy(), np.asarray(jw).astype(np.int64))
+    want = np.asarray(jdh._window_vals(jw, bit0, nbits))
+    got = dh._window_vals(pw, bit0, nbits).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _walk_tables(comp, header, sym_start, nbits_cap, s_cap):
+    _, s2b, selectors, groups = header
+    tabs = jdh.tables_for_device(groups, len(groups))
+    sel = np.zeros(s_cap, dtype=np.int32)
+    sel[:len(selectors)] = selectors[:s_cap]
+    payload = comp[sym_start >> 3:]
+    return payload, sym_start & 7, tabs, sel, len(selectors), len(s2b) + 1
+
+
+@pytest.mark.parametrize('kind', KINDS)
+def test_group_lengths(kind):
+    comp, header, sym_start = _first_block(_data(kind))
+    payload, bit0, tabs, _, _, _ = _walk_tables(comp, header, sym_start,
+                                                4096, 64)
+    jw = jdh.payload_words(jnp.asarray(payload), 200)
+    val = jdh._window_vals(jw, bit0, 4096)
+    limits, _, _, mins = convert.decode_tables(
+        *[np.asarray(x) for x in tabs], 'cpu')
+    got = dh._group_lengths(torch.from_numpy(np.array(val)), limits,
+                            mins).numpy()
+    for g in range(limits.shape[0]):
+        want = np.asarray(jdh._group_lengths(val, tabs[0][g], tabs[3][g]))
+        np.testing.assert_array_equal(got[g], want)
+
+
+def _chase_reference(F, sel, sub):
+    """The JAX walk's chase, step by step: record p, then
+    p <- F[sel[step // sub], p]; chunk c starts at step c * sub."""
+    cap = F.shape[1]
+    flat = F.reshape(-1)
+    p, rec = 0, []
+    for step in range(sel.shape[0] * sub):
+        rec.append(p)
+        p = int(flat[int(sel[step // sub]) * cap + p])
+    return np.array(rec[::sub], dtype=np.int32)
+
+
+@pytest.mark.parametrize('kind', ['text', 'random'])
+def test_selector_chase_matches_jax_starts(kind):
+    comp, header, sym_start = _first_block(_data(kind))
+    cap = 1 << 16
+    payload, bit0, tabs, sel, _, _ = _walk_tables(comp, header, sym_start,
+                                                  cap, 1024)
+    ttabs = convert.decode_tables(*[np.asarray(x) for x in tabs], 'cpu')
+    _, _, nxt = dh._next_maps(torch.from_numpy(payload.copy()), bit0, cap,
+                              ttabs[0], ttabs[3])
+    F_jax = np.asarray(jdh._power_k(jnp.asarray(nxt.numpy()), cap, 10))
+    want = _chase_reference(F_jax, sel, 5)
+    sel_t = torch.from_numpy(sel)
+    got = dh.selector_chase(torch.from_numpy(F_jax), sel_t, 5).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the port's own F gives the same chunk starts
+    F = dh._power_k(nxt, 10)
+    np.testing.assert_array_equal(dh.selector_chase(F, sel_t, 5).numpy(),
+                                  want)
+
+
+def _both_walks(comp, header, sym_start, nbits_cap, s_cap):
+    payload, bit0, tabs, sel, n_sel, eob = _walk_tables(
+        comp, header, sym_start, nbits_cap, s_cap)
+    js, jc, je = jdh.huffman_walk_dev(
+        jnp.asarray(payload), bit0, nbits_cap, s_cap, len(tabs[3]), *tabs,
+        jnp.asarray(sel), jnp.int32(n_sel), jnp.int32(eob))
+    ps, pc, pe = dh.huffman_walk_dev(
+        torch.from_numpy(payload.copy()), bit0, nbits_cap, s_cap,
+        *convert.decode_tables(*[np.asarray(x) for x in tabs], 'cpu'),
+        torch.from_numpy(sel), n_sel, eob)
+    return (np.asarray(js), int(jc), int(je)), (ps.numpy(), int(pc), int(pe))
+
+
+@pytest.mark.parametrize('kind', KINDS)
+def test_huffman_walk_matches_jax(kind):
+    comp, header, sym_start = _first_block(_data(kind))
+    nbits_cap = (comp.shape[0] - (sym_start >> 3)) * 8
+    (js, jc, je), (ps, pc, pe) = _both_walks(comp, header, sym_start,
+                                             nbits_cap, len(header[2]))
+    assert jc > 0 and pc == jc and pe == je
+    np.testing.assert_array_equal(ps[:pc], js[:jc])
+
+
+def test_huffman_walk_padded_caps():
+    """Power-of-two caps, as the stream decoder gives, change nothing."""
+    comp, header, sym_start = _first_block(_data('text'))
+    nbits = (comp.shape[0] - (sym_start >> 3)) * 8
+    nbits_cap = bp._pow2_at_least(nbits + 555, 1 << 12)
+    s_cap = bp._pow2_at_least(len(header[2]) + 37, 64)
+    (js, jc, je), (ps, pc, pe) = _both_walks(comp, header, sym_start,
+                                             nbits_cap, s_cap)
+    assert pc == jc and pe == je
+    np.testing.assert_array_equal(ps[:pc], js[:jc])

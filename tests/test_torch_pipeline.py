@@ -101,6 +101,11 @@ def test_import_isolation():
     """The port loads neither JAX nor any compressjs_tpu module."""
     code = ('import sys, compressjs_tpu_torch, compressjs_tpu_torch.convert;'
             'import compressjs_tpu_torch.ops.block_kernels;'
+            'import compressjs_tpu_torch.ops.block_decode;'
+            'import compressjs_tpu_torch.ops.compose;'
+            'import compressjs_tpu_torch.ops.device_huffman;'
+            'import compressjs_tpu_torch.host.bzip2_parse;'
+            'import compressjs_tpu_torch.parallel.decode;'
             'bad = [m for m in sys.modules if m.split(".")[0].startswith('
             '"jax") or m.split(".")[0] == "compressjs_tpu"];'
             'print(bad); sys.exit(1 if bad else 0)')

@@ -21,6 +21,7 @@ writes it to --out when given.
 import argparse
 import bz2
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -40,13 +41,11 @@ def card_line():
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def wrap_stages(totals, counts):
-    """Patch each stage function with a synchronising timer; returns an
-    undo list."""
+def stage_targets():
     from compressjs_tpu_torch.ops import block_kernels as bk
     from compressjs_tpu_torch.ops import device_entropy as de
     from compressjs_tpu_torch.parallel import pipeline as pl
-    targets = [
+    return [
         (pl, 'rle1_encode', 'host: RLE1 split'),
         (pl, 'crc32_bzip2', 'host: block CRC'),
         (pl, 'block_inputs', 'host->device block copy'),
@@ -57,6 +56,15 @@ def wrap_stages(totals, counts):
         (de, 'payload_pack_words_dev', 'device: payload pack'),
         (pl, '_device_block_header', 'host: block header bits'),
     ]
+
+
+@contextlib.contextmanager
+def timed_stages(targets):
+    """Patch each (module, function name, label) of `targets` with a
+    timer that synchronises the card before and after the call; yields
+    (seconds by label, calls by label) and undoes the patches on exit."""
+    totals = collections.defaultdict(float)
+    counts = collections.Counter()
     undo = []
     for mod, name, label in targets:
         orig = getattr(mod, name)
@@ -73,7 +81,11 @@ def wrap_stages(totals, counts):
         functools.update_wrapper(timed, orig)
         setattr(mod, name, timed)
         undo.append((mod, name, orig))
-    return undo
+    try:
+        yield totals, counts
+    finally:
+        for mod, name, orig in undo:
+            setattr(mod, name, orig)
 
 
 def busy_ms(events):
@@ -119,16 +131,10 @@ def main():
     encode()
     wall = time.perf_counter() - t0
 
-    totals = collections.defaultdict(float)
-    counts = collections.Counter()
-    undo = wrap_stages(totals, counts)
-    try:
+    with timed_stages(stage_targets()) as (totals, counts):
         t0 = time.perf_counter()
         encode()
         staged_wall = time.perf_counter() - t0
-    finally:
-        for mod, name, orig in undo:
-            setattr(mod, name, orig)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
