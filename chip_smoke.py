@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, holds each
-kernel equal to its plain version on the card at main-path shapes,
-re-encodes the in-repo bzip2 goldens at -9 through
-``compress_file_device`` and decodes them through
-``decompress_file_device``, checks the bytes, times the encode, the
-decode and each kernel, and prints:
+kernel equal to its plain version on the card at main-path shapes (MTF
+scan, Huffman allocator, windowed compose, the selector chase at k = 10
+and at the default k, MTF undo), re-encodes the in-repo bzip2 goldens at
+-9 through ``compress_file_device`` and decodes them through
+``decompress_file_device``, decodes a stream whose magic scan reports a
+false end magic inside a payload, checks the bytes, times the encode,
+the decode and each kernel, and prints:
 
 * the card's name and power limit, as nvidia-smi reports them;
 * one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -232,18 +234,24 @@ def record_tables(fn):
     return seen
 
 
-def first_block_maps(comp, dev):
-    """The walk of the first block of a -9 stream on the card, up to its
-    compositions: (nxt, the (a, b, blo, bhi) of every composition
-    `_power_k` makes, F = nxt^k, the selectors, sub-steps per selector).
-    These are the compose and chase kernels' inputs on the main path."""
+def first_block_walk(comp, dev):
+    """(the arguments of `huffman_walk_dev` for the first block of a -9
+    stream on the card, the stream's dbuf_size)."""
     from compressjs_tpu_torch.host.bzip2_parse import _parse_candidates
-    from compressjs_tpu_torch.ops import device_huffman as dh
     from compressjs_tpu_torch.parallel.decode import _walk_inputs
     data = np.frombuffer(comp, np.uint8)
     dbuf_size, _, cands, _ = _parse_candidates(data)
-    walk = _walk_inputs(data, cands[0], cands[1], dbuf_size, dev)['walk']
-    payload, bit0, nbits_cap, _, limits, _, _, mins, sel = walk[:9]
+    return _walk_inputs(data, cands[0], cands[1], dbuf_size,
+                        dev)['walk'], dbuf_size
+
+
+def first_block_maps(walk, k):
+    """The walk of a block up to its chase at composition power k: (nxt,
+    the (a, b, blo, bhi) of every composition `_power_k` makes, F = nxt^k,
+    the selectors up to n_selectors, chase steps per selector).  These
+    are the compose and chase kernels' inputs on the main path."""
+    from compressjs_tpu_torch.ops import device_huffman as dh
+    payload, bit0, nbits_cap, _, limits, _, _, mins, sel, n_sel = walk[:10]
     _, _, nxt = dh._next_maps(payload, bit0, nbits_cap, limits, mins)
     calls = []
     orig = dh.compose_windowed
@@ -254,10 +262,73 @@ def first_block_maps(comp, dev):
 
     dh.compose_windowed = recorder
     try:
-        F = dh._power_k(nxt, dh.POWER_K_DEFAULT)
+        F = dh._power_k(nxt, k)
     finally:
         dh.compose_windowed = orig
-    return nxt, calls, F, sel, dh.GROUP_SIZE // dh.POWER_K_DEFAULT
+    return nxt, calls, F, sel[:n_sel].contiguous(), dh.GROUP_SIZE // k
+
+
+def first_block_mtf_indices(walk, dbuf_size):
+    """The MTF-undo kernel's input on the main path: the first block's
+    RLE2-decoded indices over the whole dbuf_size capacity (zero past the
+    block's total), as `bwt_column` passes them."""
+    from compressjs_tpu_torch.ops import device_huffman as dh
+    syms, count, _ = dh.huffman_walk_dev(*walk)
+    idx, total = dh.rle2_decode(syms, dbuf_size, count)
+    return idx, int(total)
+
+
+def check_mtf_undo(idx, n):
+    """Kernel vs plain on one input; returns (max_abs_err, kernel ms of
+    both launches, of the permutation launch, of the decode launch,
+    wrapper ms, plain ms, bound ms, bound_by)."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import block_decode as bd
+    got = bd.mtf_decode(idx, n)
+    want = bd.mtf_decode_plain(idx, n)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError('MTF-undo kernel differs from its plain '
+                             'version (n %d): max abs err %d' % (n, err))
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(idx.device)
+    n_chunks = -(-n // bd.CHUNK_LEN)
+    perm = torch.empty((n_chunks, bd.WIDTH), dtype=torch.uint8,
+                       device=idx.device)
+    out = torch.empty(n, dtype=torch.int32, device=idx.device)
+
+    def launch_perm():  # the kernels alone, outside the wrapper
+        _cuda.check(lib.cz_mtf_undo_perm(idx.data_ptr(), perm.data_ptr(),
+                                         n, n_chunks, stream), 'mtf_undo')
+
+    launch_perm()
+    lists = bd._start_lists(perm)
+
+    def launch_decode():
+        _cuda.check(lib.cz_mtf_undo_decode(
+            idx.data_ptr(), lists.data_ptr(), out.data_ptr(), n, n_chunks,
+            stream), 'mtf_undo')
+
+    def launch_both():
+        launch_perm()
+        launch_decode()
+
+    ms = cuda_ms(launch_both, 20)
+    if not torch.equal(out, got):
+        raise AssertionError('timed MTF-undo launches differ')
+    perm_ms = cuda_ms(launch_perm, 20)
+    decode_ms = cuda_ms(launch_decode, 20)
+    wrapper = cuda_ms(lambda: bd.mtf_decode(idx, n), 20)
+    plain = cuda_ms(lambda: bd.mtf_decode_plain(idx, n), 1)
+    # the function's traffic: int32 indices read once, int32 values
+    # written once (the permutations and start lists between the two
+    # launches belong to this split, not to the function); per index and
+    # launch a lookup and a front write, and one move per position in
+    # front of it
+    front = int(idx[:n].long().clamp(0, bd.WIDTH).sum())
+    b = bound(8 * n, 2 * (2 * n + front))
+    return err, ms, perm_ms, decode_ms, wrapper, plain, b[0], b[1]
 
 
 def check_compose(calls, dev):
@@ -405,7 +476,7 @@ def main():
     print('build %.2f s -> %s' % (_cuda.build_info['seconds'],
                                   _cuda.build_info['path']))
     for line in _cuda.build_info['log'].splitlines():
-        if 'ptxas' in line:
+        if 'ptxas' in line or 'stack frame' in line:
             print('  ' + line.strip())
 
     s5_comp, s5 = golden('sample5_bzip2_9.bz2')
@@ -430,21 +501,46 @@ def main():
           'plain %.3f ms, bound %.6f ms (%s)' % ((len(tables),) + alloc[1:]))
 
     phase('compose kernel vs plain version')
-    nxt, calls, F, sel, sub = first_block_maps(s5_comp, dev)
-    print('  sample5 first block: maps %s, %d compositions, windows %s'
-          % (tuple(nxt.shape), len(calls), [c[2:] for c in calls]))
+    from compressjs_tpu_torch.ops.device_huffman import POWER_K_DEFAULT
+    walk, dbuf_size = first_block_walk(s5_comp, dev)
+    nxt, calls, F, sel, sub = first_block_maps(walk, POWER_K_DEFAULT)
+    print('  sample5 first block: maps %s, k = %d, %d compositions, '
+          'windows %s' % (tuple(nxt.shape), POWER_K_DEFAULT, len(calls),
+                          [c[2:] for c in calls]))
     comp = check_compose(calls, dev)
+    n_compose = len(calls)
     print('  mean of the main-path launches: kernel %.4f ms, wrapper '
           '%.4f ms, plain %.3f ms, bound %.5f ms (%s), torch.gather %.4f '
           'ms, kernel with a cold L2 %.4f ms' % comp[1:])
 
     phase('chase kernel vs plain version')
-    chase = check_chase(F, sel, sub, dev)
-    print('  %d selectors x %d steps: kernel %.4f ms, wrapper %.4f ms, '
-          'plain %.3f ms, bound %.6f ms (%s); one-thread chase of a '
-          'random ring of F\'s size at the same steps %.4f ms (%.1f ns '
-          'per dependent load)' % ((sel.shape[0], sub) + chase[1:]))
+    chases = {}
+    for k in sorted({10, POWER_K_DEFAULT}):
+        _, _, F_k, sel_k, sub_k = first_block_maps(walk, k)
+        chases[k] = check_chase(F_k, sel_k, sub_k, dev)
+        print('  k = %d: %d selectors x %d steps = %d steps: kernel %.4f '
+              'ms, wrapper %.4f ms, plain %.3f ms, bound %.6f ms (%s); '
+              'one-thread chase of a random ring of F\'s size at the same '
+              'steps %.4f ms (%.1f ns per dependent load)'
+              % ((k, sel_k.shape[0], sub_k, sel_k.shape[0] * sub_k)
+                 + chases[k][1:]))
+        del F_k
+    chase = chases[POWER_K_DEFAULT]
     del nxt, calls, F
+
+    phase('MTF-undo kernel vs plain version')
+    idx, total = first_block_mtf_indices(walk, dbuf_size)
+    undo_real = check_mtf_undo(idx, dbuf_size)
+    rand = np.minimum(rng.zipf(1.3, 899981) - 1, 255).astype(np.int32)
+    rand[3::97] = 256
+    undo_rand = check_mtf_undo(torch.from_numpy(rand).to(dev), 899977)
+    print('  sample5 block (%d of %d indices in use): kernel %.4f ms '
+          '(permutations %.4f, decode %.4f), wrapper %.4f ms, plain %.3f '
+          'ms, bound %.5f ms (%s)' % ((total, dbuf_size) + undo_real[1:]))
+    print('  random, ragged, planted 256s: kernel %.4f ms (permutations '
+          '%.4f, decode %.4f), wrapper %.4f ms, plain %.3f ms, bound %.5f '
+          'ms (%s)' % undo_rand[1:])
+    del walk, idx
 
     phase('main path: sample5x4 -9 encode')
     for name in _cuda.launches:
@@ -475,8 +571,9 @@ def main():
           % (len(s5x4_comp), len(out), n_dec, dec_launches))
     if out != s5x4:
         raise AssertionError('sample5x4 decode differs from bz2')
-    if dec_launches['compose_windowed'] != 4 * n_dec or \
-            dec_launches['selector_chase'] != n_dec:
+    if dec_launches['compose_windowed'] != n_compose * n_dec \
+            or dec_launches['selector_chase'] != n_dec \
+            or dec_launches['mtf_undo'] != 2 * n_dec:
         raise AssertionError('decode skipped a kernel: %s' % dec_launches)
 
     phase('more inputs')
@@ -497,6 +594,39 @@ def main():
                                  % name)
         print('  %s: %d -> %d bytes, round-trips; its bz2 -9 stream '
               'decodes' % (name, len(data), len(out)))
+
+    phase('false end magic inside a payload')
+    # a 3-block level-1 stream whose magic scan also reports an end hit
+    # and a block hit 5,000 bits into block 0's payload, as a payload
+    # holding those bit patterns would
+    from compressjs_tpu_torch.host import bzip2_parse as bp
+    data = rng.choice(np.frombuffer(b'abcd', np.uint8), 250000).tobytes()
+    c1 = bz2.compress(data, 1)
+    scan = bp._scan_magic
+    blocks = scan(np.frombuffer(c1, np.uint8), bp.MAGIC_BYTES)
+    if len(blocks) != 3:
+        raise AssertionError('the stream has %d blocks, not 3' % len(blocks))
+    false_hit = np.asarray([int(blocks[0]) + 5000], dtype=np.int64)
+
+    def planted(buf, pattern):
+        return np.sort(np.concatenate([scan(buf, pattern), false_hit]))
+
+    bp._scan_magic = planted
+    try:
+        for name in _cuda.launches:
+            _cuda.launches[name] = 0
+        out = cz.decompress_file_device(c1, device='cuda')
+        torch.cuda.synchronize()
+        c1_launches = dict(_cuda.launches)
+    finally:
+        bp._scan_magic = scan
+    print('  %d bytes -> %d bytes, false hits at bit %d, launches %s'
+          % (len(c1), len(out), false_hit[0], c1_launches))
+    if out != data:
+        raise AssertionError('stream with a false end magic decodes wrong')
+    if c1_launches['selector_chase'] < 3 or c1_launches['mtf_undo'] < 6:
+        raise AssertionError('false-magic decode skipped a kernel: %s'
+                             % c1_launches)
 
     phase('timing')
     t0 = torch.cuda.Event(enable_timing=True)
@@ -553,10 +683,24 @@ def main():
          'replaces': 'compressjs_tpu/ops/device_huffman.py:291 (lax.scan, '
                      'no TPU kernel)',
          'launches': dec_launches['selector_chase'],
-         'max_abs_err': chase[0], 'ms': chase[1], 'plain_ms': chase[3],
+         'max_abs_err': max(c[0] for c in chases.values()),
+         'ms': chase[1], 'plain_ms': chase[3],
          'bound_ms': chase[4], 'bound_by': chase[5], 'library_ms': None,
          # a chain of dependent loads: its floor is their latency
-         'latency_bound_ms': chase[6], 'ns_per_dependent_load': chase[7]},
+         'latency_bound_ms': chase[6], 'ns_per_dependent_load': chase[7],
+         'power_k': POWER_K_DEFAULT, 'k10_ms': chases[10][1],
+         'k10_latency_bound_ms': chases[10][6]},
+        {'name': 'mtf_undo', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/mtf_undo.cu',
+         'replaces': 'compressjs_tpu/ops/jax_kernels.py:617 (lax.scan, '
+                     'no TPU kernel)',
+         'launches': dec_launches['mtf_undo'],
+         'max_abs_err': max(undo_real[0], undo_rand[0]),
+         # both launches of one call (permutations, then decode)
+         'ms': undo_real[1], 'plain_ms': undo_real[5],
+         'bound_ms': undo_real[6], 'bound_by': undo_real[7],
+         'library_ms': None, 'perm_ms': undo_real[2],
+         'decode_ms': undo_real[3], 'wrapper_ms': undo_real[4]},
     ]
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)

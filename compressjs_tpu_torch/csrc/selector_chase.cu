@@ -8,7 +8,7 @@
 //   p <- F[sel[c] * cap + p],  `sub` times per selector c,
 //
 // starting at p = 0, and starts[c] is p before chunk c's first step.
-// In PyTorch that chain would be one launch per step (~40,000 a -9
+// In PyTorch that chain would be one launch per step (thousands a -9
 // block), so one thread runs it here.
 //
 // What bounds it: latency.  Every step is a load whose address depends

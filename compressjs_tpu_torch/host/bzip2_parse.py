@@ -205,25 +205,25 @@ def _scan_magic(data, pattern):
 
 
 def _parse_candidates(data):
-    """(dbuf_size, first_block_pos, candidate block bit positions before
-    the first end-of-stream magic, that magic's bit position), or None when the stream has no block
-    at its first block position or no end magic after it."""
+    """(dbuf_size, first_block_pos, candidate block bit positions, end
+    hits), or None when the stream has no block at its first block
+    position or no end-of-stream magic after it.  The end hits are every
+    bit position of the end-of-stream magic after the first block, in
+    order: a payload may hold the pattern, so any of them may be false.
+    The candidates are the block magics from the first block up to the
+    last end hit."""
     r = _BitReader(data)
     dbuf_size = _start(r)
     first_block_pos = r.tell_bit()
+    end_hits = [int(p) for p in _scan_magic(data, END_MAGIC_BYTES)
+                if p > first_block_pos]
+    if not end_hits:
+        return None
     candidates = [int(p) for p in _scan_magic(data, MAGIC_BYTES)
-                  if p >= first_block_pos]
+                  if first_block_pos <= p < end_hits[-1]]
     if not candidates or candidates[0] != first_block_pos:
         return None
-    end_hits = _scan_magic(data, END_MAGIC_BYTES)
-    end_hits = end_hits[end_hits >= first_block_pos]
-    if end_hits.size == 0:
-        return None
-    end_bound = int(end_hits[0])
-    candidates = [p for p in candidates if p < end_bound]
-    if not candidates:
-        return None
-    return dbuf_size, first_block_pos, candidates, end_bound
+    return dbuf_size, first_block_pos, candidates, end_hits
 
 
 def _pow2_at_least(x, lo):

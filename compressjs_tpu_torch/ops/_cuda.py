@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu', 'compose_windowed.cu',
-           'selector_chase.cu')
+           'selector_chase.cu', 'mtf_undo.cu')
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 CFLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                  '-Xptxas', '-v']
@@ -32,7 +32,7 @@ _lib = None
 # kernel launches so far, by kernel: each wrapper adds one where it calls
 # its kernel's C entry point, and nowhere else
 launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'compose_windowed': 0,
-            'selector_chase': 0}
+            'selector_chase': 0, 'mtf_undo': 0}
 # what the last build did: wall seconds and nvcc's messages (the
 # -Xptxas -v register and shared-memory lines); empty if reused
 build_info = {'seconds': 0.0, 'log': '', 'path': None}
@@ -98,6 +98,10 @@ def _bind(lib):
     lib.cz_compose_windowed.restype = i32
     lib.cz_selector_chase.argtypes = [p, p, p, i32, i64, i32, i32, p]
     lib.cz_selector_chase.restype = i32
+    lib.cz_mtf_undo_perm.argtypes = [p, p, i64, i32, p]
+    lib.cz_mtf_undo_perm.restype = i32
+    lib.cz_mtf_undo_decode.argtypes = [p, p, p, i64, i32, p]
+    lib.cz_mtf_undo_decode.restype = i32
     return lib
 
 

@@ -12,12 +12,15 @@ Where the JAX package used ``lax.associative_scan`` the port uses:
 * list ranking by pointer doubling for the inverse BWT's orbit.
 
 All functions take tensors on any device and return tensors on it; none
-of them synchronises with the host unless its docstring says so.
+of them synchronises with the host unless its docstring says so.  MTF
+undo runs a CUDA kernel (``csrc/mtf_undo.cu``) for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import _cuda
 
 CHUNK_LEN = 512   # MTF chunk length
 WIDTH = 256       # MTF list length
@@ -81,40 +84,85 @@ def rle2_decode(syms, out_cap, count):
 
 def _mtf_at(lists, js, pos):
     """Move-to-front at index js[c] of each row (pos = arange(WIDTH)):
-    (new lists, the values moved).  An index past the list moves nothing
-    to the front (value 0) and shifts the whole row, as the JAX package's
-    masked select does."""
+    (new lists, the values moved).  Position 0 takes the moved value and
+    positions 1..js[c] the value before them.  An index outside the list
+    moves value 0 to the front (an index past it shifts the whole row),
+    as the JAX package's masked select does."""
     inside = (js >= 0) & (js < WIDTH)
     moved = torch.where(
         inside, lists.gather(1, js.clamp(0, WIDTH - 1)[:, None])[:, 0], 0)
-    shifted = torch.roll(lists, 1, 1)
-    shifted[:, 0] = moved
-    return torch.where(pos[None, :] <= js[:, None], shifted, lists), moved
+    new = torch.where(pos[None, :] <= js[:, None], torch.roll(lists, 1, 1),
+                      lists)
+    new[:, 0] = moved
+    return new, moved
+
+
+def _start_lists(perm):
+    """The list before each chunk, uint8 (n_chunks, WIDTH), from each
+    chunk's permutation of the list: the list before chunk c is the one
+    before c-1 permuted by c-1."""
+    inclusive = _scan_compose(perm.to(torch.int64), earlier_first=False)
+    lists = torch.empty_like(perm)
+    lists[:1] = torch.arange(WIDTH, dtype=torch.uint8, device=perm.device)
+    lists[1:] = inclusive[:-1]
+    return lists
+
+
+def mtf_decode_plain(indices, n):
+    """Plain version of `mtf_decode`: two Python loops of CHUNK_LEN
+    steps, each step moving every chunk's list at once."""
+    dev = indices.device
+    n_chunks = -(-n // CHUNK_LEN)
+    d = torch.zeros(n_chunks * CHUNK_LEN, dtype=torch.int64, device=dev)
+    d[:n] = indices[:n]
+    chunks = d.view(n_chunks, CHUNK_LEN)
+    pos = torch.arange(WIDTH, device=dev)
+    perm = torch.arange(WIDTH, dtype=torch.uint8, device=dev).expand(
+        n_chunks, WIDTH)
+    for t in range(CHUNK_LEN):
+        perm, _ = _mtf_at(perm, chunks[:, t], pos)
+    lists = _start_lists(perm)
+    out = torch.empty((CHUNK_LEN, n_chunks), dtype=torch.uint8, device=dev)
+    for t in range(CHUNK_LEN):
+        lists, out[t] = _mtf_at(lists, chunks[:, t], pos)
+    return out.T.reshape(-1)[:n].to(torch.int32)
 
 
 def mtf_decode(indices, n):
     """Invert MTF on indices[:n]: each chunk's effect on the list is a
     permutation fixed by its own indices, so all chunk permutations are
     built at once, the list before each chunk comes from a composition
-    scan, and all chunks then decode at once.  Returns int32[n]."""
+    scan, and all chunks then decode at once.  Returns int32[n].
+
+    For a CUDA tensor (contiguous 1-D int32) it launches
+    ``csrc/mtf_undo.cu`` twice, for the permutations and for the decode,
+    with the composition scan between; for a CPU tensor it runs
+    `mtf_decode_plain`."""
+    if indices.device.type == 'cpu':
+        return mtf_decode_plain(indices, n)
+    _cuda.require_cuda(indices, 'mtf_decode')
+    if (indices.dim() != 1 or indices.dtype != torch.int32
+            or not indices.is_contiguous()
+            or not 0 <= n <= indices.shape[0]):
+        raise ValueError('mtf_decode takes a contiguous 1-D int32 tensor '
+                         'and 0 <= n <= its length')
     dev = indices.device
     n_chunks = -(-n // CHUNK_LEN)
-    d = torch.zeros(n_chunks * CHUNK_LEN, dtype=torch.int64, device=dev)
-    d[:n] = indices[:n]
-    chunks = d.view(n_chunks, CHUNK_LEN)
-    identity = torch.arange(WIDTH, dtype=torch.uint8, device=dev).expand(
-        n_chunks, WIDTH)
-    pos = torch.arange(WIDTH, device=dev)
-    perm = identity
-    for t in range(CHUNK_LEN):
-        perm, _ = _mtf_at(perm, chunks[:, t], pos)
-    # the list before chunk c is the one before c-1 permuted by c-1
-    inclusive = _scan_compose(perm.to(torch.int64), earlier_first=False)
-    lists = torch.cat([identity[:1], inclusive[:-1].to(torch.uint8)])
-    out = torch.empty((CHUNK_LEN, n_chunks), dtype=torch.uint8, device=dev)
-    for t in range(CHUNK_LEN):
-        lists, out[t] = _mtf_at(lists, chunks[:, t], pos)
-    return out.T.reshape(-1)[:n].to(torch.int32)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    perm = torch.empty((n_chunks, WIDTH), dtype=torch.uint8, device=dev)
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+    _cuda.launches['mtf_undo'] += 1
+    _cuda.check(lib.cz_mtf_undo_perm(indices.data_ptr(), perm.data_ptr(),
+                                     n, n_chunks, stream), 'mtf_undo')
+    lists = _start_lists(perm)
+    _cuda.launches['mtf_undo'] += 1
+    _cuda.check(lib.cz_mtf_undo_decode(indices.data_ptr(), lists.data_ptr(),
+                                       out.data_ptr(), n, n_chunks, stream),
+                'mtf_undo')
+    return out
 
 
 def _lf_mapping(key):

@@ -33,9 +33,10 @@ from .compose import compose_windowed
 MAX_CODE_BITS = 20     # bzip2 code lengths are 1..20
 GROUP_SIZE = 50
 BIG_LIMIT = 1 << 28    # stands in for the int64-max limit sentinel
-# composition power: F = nxt^10 takes 4 compositions and 5 chase steps
-# per selector
-POWER_K_DEFAULT = 10
+# composition power: F = nxt^50 takes 7 compositions and one chase step
+# per selector, so the chase, one thread's chain of dependent loads, is
+# as short as one thread can make it
+POWER_K_DEFAULT = 50
 _MASK32 = 0xFFFFFFFF
 
 
@@ -201,7 +202,11 @@ def huffman_walk_dev(payload_bytes, bit0, nbits_cap, s_cap, limits, bases,
                                 min_lens)
     F = _power_k(nxt, POWER_K_DEFAULT)
     sel = selectors[:s_cap].to(torch.int32).contiguous()
-    starts = selector_chase(F, sel, GROUP_SIZE // POWER_K_DEFAULT)
+    # the chain stops at n_selectors: chunks past it lie past the EOB, and
+    # their starts stay 0
+    m = min(n_selectors, s_cap)
+    starts = torch.zeros_like(sel)
+    starts[:m] = selector_chase(F, sel[:m], GROUP_SIZE // POWER_K_DEFAULT)
 
     # chunk-parallel 50-symbol walk; a step's code length is the one
     # stage 1 already found at that offset under the chunk's group

@@ -8,8 +8,11 @@ runs the parallel Huffman walk, RLE2 and MTF undo of every candidate
 (all launched before any is read back), and then, for the blocks that
 chain bit-exactly from the first to the end-of-stream magic, the
 inverse BWT and RLE1 undo.  The host checks each block's CRC and the
-stream CRC.  There is no host decoder to fall back to: a stream that
-does not decode raises ``ValueError``.
+stream CRC.  A payload may hold either magic's bit pattern: a false
+block magic makes the block before it retry with a wider bound, and a
+false end magic makes the chain go on to the next end hit.  There is no
+host decoder to fall back to: a stream that does not decode raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -22,20 +25,33 @@ from ..host.bits import SQRTPI, WHOLEPI
 from ..host.bzip2_parse import (_BitReader, _parse_block_header,
                                 _parse_candidates, _pow2_at_least, _start)
 from ..host.crc32 import crc32_bzip2, stream_crc_combine
-from ..ops.device_huffman import block_bytes, bwt_column, \
+from ..ops.device_huffman import MAX_CODE_BITS, block_bytes, bwt_column, \
     huffman_walk_dev, tables_for_device
 
-# a retry against the stream end reads at most this many bits
-_RETRY_BITS = 64 << 20
+# The most bits a block takes from its magic to the end of its EOB code.
+# The header: magic 48, block CRC 32, randomised flag 1, origPtr 24,
+# symbol map 16 + 16 x 16, group count 3, selector count 15, at most
+# 32,767 unary selectors of at most 7 bits, and 6 tables of a 5-bit
+# first length and 258 lengths of at most 2 x 19 + 1 delta bits each
+# (the shortest steps from the previous length, as encoders write them).
+# Then at most dbuf_size + 1 symbols (a BWT byte gives at most one
+# symbol, and the EOB) of at most 20 bits.
+_MAX_HEADER_BITS = (48 + 32 + 1 + 24 + 16 + 16 * 16 + 3 + 15 + 32767 * 7
+                    + 6 * (5 + 258 * 39))
+
+
+def _max_block_bits(dbuf_size):
+    return _MAX_HEADER_BITS + (dbuf_size + 1) * MAX_CODE_BITS
 
 
 def _walk_inputs(data, pos, bound, dbuf_size, device):
     """Parse the header of the candidate block at bit `pos` on the host.
-    `bound` is the next candidate's or the end magic's bit: the block's
-    symbols cannot run past it.  Returns None when the header does not
-    parse, else a dict: 'walk', the arguments of `huffman_walk_dev` on
-    `device`; 'sym_to_byte', a uint8 tensor of 256 entries; and the
-    block's 'byte0', 'orig_ptr' and 'target_crc'."""
+    `bound` is the bit the block's symbols cannot run past: the next
+    candidate's, an end hit's, or the most a block can take.  Returns
+    None when the header does not parse, else a dict: 'walk', the
+    arguments of `huffman_walk_dev` on `device`; 'sym_to_byte', a uint8
+    tensor of 256 entries; and the block's 'byte0', 'orig_ptr' and
+    'target_crc'."""
     rr = _BitReader(data)
     rr.seek_bit(pos)
     if rr.read_bits(48) != WHOLEPI:
@@ -132,32 +148,60 @@ def decompress_file_device(data, output=None, device='cuda'):
     return output
 
 
-def _decode_chain(data, dbuf_size, first_block_pos, candidates, end_bound,
-                  device):
-    bounds = candidates[1:] + [end_bound]
+def _decode_window(data, cands, end, dbuf_size, device):
+    """{bit position: `_device_entropy_collect` result} for the candidate
+    blocks `cands` (ascending, all before the end hit `end`) that decode.
+    Each is first bounded by the next candidate; one that fails is tried
+    again to `end`.  Neither bound exceeds the most bits a block of this
+    dbuf_size can take, so no valid block is out of reach and the
+    speculative arrays stay bounded."""
+    most = _max_block_bits(dbuf_size)
+    bounds = [min(b, p + most) for p, b in zip(cands, cands[1:] + [end])]
     # launch every candidate before reading any back, so the host's
     # header parsing overlaps the device's walks
     launched = [_device_entropy_launch(data, p, b, dbuf_size, device)
-                for p, b in zip(candidates, bounds)]
+                for p, b in zip(cands, bounds)]
     by_pos = {}
-    for p, b, h in zip(candidates, bounds, launched):
+    for p, b, h in zip(cands, bounds, launched):
         res = _device_entropy_collect(h, b, dbuf_size)
-        if res is None and b != end_bound and \
-                end_bound - p <= _RETRY_BITS:
+        retry = min(end, p + most)
+        if res is None and retry > b:
             # a false magic inside a payload makes the first bound too
-            # tight for the true block before it: retry to the stream end
+            # tight for the true block before it
             res = _device_entropy_collect(
-                _device_entropy_launch(data, p, end_bound, dbuf_size,
-                                       device), end_bound, dbuf_size)
+                _device_entropy_launch(data, p, retry, dbuf_size, device),
+                retry, dbuf_size)
         if res is not None and res[3] > p:
             by_pos[p] = res
+    return by_pos
+
+
+def _decode_chain(data, dbuf_size, first_block_pos, candidates, end_hits,
+                  device):
+    """Chain the blocks bit-exactly from the first block to an end hit.
+    The chain is built against the first end hit; where it stops short
+    of an end hit, that end hit was a false one inside the payload of
+    the block at the stop, so the blocks from there are decoded again
+    against the next end hit.  Blocks already chained are kept."""
+    ends = set(end_hits)
     chain = []
     pos = first_block_pos
-    while pos in by_pos:
-        chain.append(by_pos.pop(pos))
-        pos = chain[-1][3]
+    for end in end_hits:
+        if end <= pos:
+            continue
+        by_pos = _decode_window(
+            data, [p for p in candidates if pos <= p < end], end,
+            dbuf_size, device)
+        while pos in by_pos:
+            chain.append(by_pos.pop(pos))
+            pos = chain[-1][3]
+        if pos in ends:
+            break
     if not chain:
         raise ValueError('no decodable bzip2 block at the stream start')
+    if pos not in ends:
+        raise ValueError('block chain does not end at the end-of-stream '
+                         'magic')
 
     pieces = []
     stream_crc = 0
@@ -172,10 +216,7 @@ def _decode_chain(data, dbuf_size, first_block_pos, candidates, end_bound,
         pieces.append(piece.tobytes())
         stream_crc = stream_crc_combine(stream_crc, target_crc)
     rr = _BitReader(data)
-    rr.seek_bit(pos)
-    if rr.read_bits(48) != SQRTPI:
-        raise ValueError('block chain does not end at the end-of-stream '
-                         'magic')
+    rr.seek_bit(pos + 48)
     target = rr.read_bits(32)
     if target != stream_crc:
         raise ValueError('bad stream CRC (got %x expected %x)'

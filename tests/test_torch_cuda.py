@@ -16,11 +16,14 @@ import pytest
 import torch
 
 import compressjs_tpu_torch as cz
+from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.ops import _cuda
+from compressjs_tpu_torch.ops import block_decode as bd
 from compressjs_tpu_torch.ops import block_kernels as bk
 from compressjs_tpu_torch.ops import compose as cm
 from compressjs_tpu_torch.ops import device_entropy as de
 from compressjs_tpu_torch.ops import device_huffman as dh
+from compressjs_tpu_torch.parallel import decode as dec
 
 pytestmark = pytest.mark.cuda
 
@@ -129,5 +132,65 @@ def test_decode_golden_sample5_on_card(cuda):
     before = dict(_cuda.launches)
     assert cz.decompress_file_device(gold) == bz2.decompress(gold)
     assert _cuda.launches['compose_windowed'] - \
-        before['compose_windowed'] == 4 * 3
+        before['compose_windowed'] == 7 * 3
     assert _cuda.launches['selector_chase'] - before['selector_chase'] == 3
+    assert _cuda.launches['mtf_undo'] - before['mtf_undo'] == 2 * 3
+
+
+@pytest.mark.parametrize('n', [899981, 5037, 512, 1])
+def test_mtf_undo_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    idx = np.minimum(rng.zipf(1.3, n + 3) - 1, 255).astype(np.int32)
+    idx[3::97] = 256      # past the list
+    idx[5::89] = -1       # before it
+    idx = torch.from_numpy(idx).to(cuda)
+    before = _cuda.launches['mtf_undo']
+    got = bd.mtf_decode(idx, n)
+    assert _cuda.launches['mtf_undo'] == before + 2
+    assert torch.equal(got, bd.mtf_decode_plain(idx, n))
+
+
+def test_mtf_undo_rejects_bad_input(cuda):
+    idx = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bd.mtf_decode(idx.long(), 1000)
+    with pytest.raises(ValueError):
+        bd.mtf_decode(idx.view(10, 100), 1000)
+    with pytest.raises(ValueError):
+        bd.mtf_decode(idx[::2], 500)
+    with pytest.raises(ValueError):
+        bd.mtf_decode(idx, 1001)
+
+
+def _sample5_first_walk(dev):
+    with open(os.path.join(GOLDEN, 'sample5_bzip2_9.bz2'), 'rb') as f:
+        data = np.frombuffer(f.read(), np.uint8)
+    dbuf_size, _, cands, _ = bp._parse_candidates(data)
+    return dec._walk_inputs(data, cands[0], cands[1], dbuf_size,
+                            dev)['walk']
+
+
+def test_walk_on_card_equals_cpu(cuda):
+    """The walk of sample5's first block through the compose and chase
+    kernels gives what the plain versions give on the CPU."""
+    gs, gc, ge = dh.huffman_walk_dev(*_sample5_first_walk(cuda))
+    ws, wc, we = dh.huffman_walk_dev(*_sample5_first_walk('cpu'))
+    count = int(wc)
+    assert count > 0 and int(gc) == count and int(ge) == int(we)
+    assert torch.equal(gs[:count].cpu(), ws[:count])
+
+
+@pytest.mark.parametrize('sub', [1, 5])
+def test_chase_kernel_bounded_equals_full(cuda, sub):
+    """The kernel's chase over the first n_selectors selectors gives the
+    first n_selectors starts of its chase over the padded s_cap."""
+    walk = _sample5_first_walk(cuda)
+    payload, bit0, nbits_cap, s_cap, limits, _, _, mins, sel, n_sel, _ = \
+        walk
+    assert s_cap > n_sel
+    _, _, nxt = dh._next_maps(payload, bit0, nbits_cap, limits, mins)
+    F = dh._power_k(nxt, dh.GROUP_SIZE // sub)
+    sel = sel[:s_cap].to(torch.int32).contiguous()
+    full = dh.selector_chase(F, sel, sub)
+    assert torch.equal(dh.selector_chase(F, sel[:n_sel], sub),
+                       full[:n_sel])

@@ -13,6 +13,8 @@ import torch
 
 from compressjs_tpu.codecs import bzip2 as jbz
 import compressjs_tpu_torch as cz
+from compressjs_tpu_torch.host import bzip2_parse as bp
+from compressjs_tpu_torch.parallel import decode as dec
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 
@@ -87,6 +89,53 @@ def test_corrupt_stream_raises(where):
 def test_bad_streams_raise(comp):
     with pytest.raises(ValueError):
         cz.decompress_file_device(comp, device='cpu')
+
+
+def _plant_magic(monkeypatch, block_hits=(), end_hits=()):
+    """Make the magic scan also report the given bit positions, as a
+    payload that happens to hold a magic's bit pattern would."""
+    scan = bp._scan_magic
+
+    def planted(data, pattern):
+        extra = block_hits if pattern is bp.MAGIC_BYTES else end_hits
+        return np.sort(np.concatenate(
+            [scan(data, pattern), np.asarray(extra, dtype=np.int64)]))
+
+    monkeypatch.setattr(bp, '_scan_magic', planted)
+
+
+@pytest.mark.parametrize('false_end,false_block', [
+    ([1], []), ([0, 1], []), ([1], [0]), ([0], [0, 1])])
+def test_false_magic_inside_a_payload(monkeypatch, false_end,
+                                      false_block):
+    """A 3-block stream with false end-of-stream and block magics planted
+    5,000 bits into the payloads of the listed blocks decodes."""
+    rng = np.random.default_rng(0)
+    data = rng.choice(np.frombuffer(b'abcd', np.uint8), 250000).tobytes()
+    comp = bz2.compress(data, 1)
+    blocks = bp._scan_magic(np.frombuffer(comp, np.uint8), bp.MAGIC_BYTES)
+    assert len(blocks) == 3
+    _plant_magic(monkeypatch, [int(blocks[i]) + 5000 for i in false_block],
+                 [int(blocks[i]) + 5000 for i in false_end])
+    assert cz.decompress_file_device(comp, device='cpu') == data
+
+
+@pytest.mark.parametrize('false_end', [[], [1]])
+def test_retry_far_from_the_end(monkeypatch, false_end):
+    """A false block magic inside block 0, with the stream end further
+    away than the retry may read: the retry is bounded by the largest
+    block, not by the end, and still reaches block 1.  The largest block
+    is shrunk to 300,000 bits (block 0 takes about 218,000) so that a
+    small stream stands for one of many megabits."""
+    monkeypatch.setattr(dec, '_max_block_bits', lambda dbuf_size: 300000)
+    rng = np.random.default_rng(0)
+    data = rng.choice(np.frombuffer(b'abcd', np.uint8), 250000).tobytes()
+    comp = bz2.compress(data, 1)
+    blocks = bp._scan_magic(np.frombuffer(comp, np.uint8), bp.MAGIC_BYTES)
+    assert len(comp) * 8 - int(blocks[0]) > 300000
+    _plant_magic(monkeypatch, [int(blocks[0]) + 5000],
+                 [int(blocks[i]) + 5000 for i in false_end])
+    assert cz.decompress_file_device(comp, device='cpu') == data
 
 
 def test_cuda_is_required_for_cuda(monkeypatch):

@@ -55,6 +55,35 @@ def test_mtf_decode(n):
     np.testing.assert_array_equal(got, want)
 
 
+def _mtf_undo_case(kind):
+    """(indices, n): seeded MTF index streams."""
+    rng = np.random.default_rng(len(kind))
+    idx = np.minimum(rng.zipf(1.3, 5000) - 1, 255).astype(np.int32)
+    if kind == 'ragged':            # a last chunk of 397 indices
+        return idx, 4493
+    if kind == 'planted':           # past the list
+        idx[3::97] = 256
+        idx[5::89] = 1000
+        return idx, 5000
+    if kind == 'negative':          # before the list
+        idx[2::61] = -1
+        idx[9::71] = -300
+        return idx, 4999
+    if kind == 'padded_tail':       # zeros past the total, as bwt_column
+        idx[3000:] = 0              # decodes the whole capacity
+        return idx, 5000
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize('kind', ['ragged', 'planted', 'negative',
+                                  'padded_tail'])
+def test_mtf_decode_plain(kind):
+    idx, n = _mtf_undo_case(kind)
+    want = np.asarray(jk.mtf_decode(jnp.asarray(idx), n))
+    got = bd.mtf_decode_plain(torch.from_numpy(idx), n).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def _bwt_case(kind):
     rng = np.random.default_rng(len(kind))
     if kind == 'text':

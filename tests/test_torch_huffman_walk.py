@@ -149,17 +149,55 @@ def test_selector_chase_matches_jax_starts(kind):
                                   want)
 
 
-def _both_walks(comp, header, sym_start, nbits_cap, s_cap):
+def _both_walks(comp, header, sym_start, nbits_cap, s_cap,
+                jax_power_k=None):
+    """Both packages' walks; the JAX walk at its own default composition
+    power unless jax_power_k is given, the port's at its only one."""
     payload, bit0, tabs, sel, n_sel, eob = _walk_tables(
         comp, header, sym_start, nbits_cap, s_cap)
+    k = {} if jax_power_k is None else {'power_k': jax_power_k}
     js, jc, je = jdh.huffman_walk_dev(
         jnp.asarray(payload), bit0, nbits_cap, s_cap, len(tabs[3]), *tabs,
-        jnp.asarray(sel), jnp.int32(n_sel), jnp.int32(eob))
+        jnp.asarray(sel), jnp.int32(n_sel), jnp.int32(eob), **k)
     ps, pc, pe = dh.huffman_walk_dev(
         torch.from_numpy(payload.copy()), bit0, nbits_cap, s_cap,
         *convert.decode_tables(*[np.asarray(x) for x in tabs], 'cpu'),
         torch.from_numpy(sel), n_sel, eob)
     return (np.asarray(js), int(jc), int(je)), (ps.numpy(), int(pc), int(pe))
+
+
+@pytest.mark.parametrize('kind', ['text', 'random'])
+def test_power_k_50_matches_jax(monkeypatch, kind):
+    """F = nxt^50 of a real block, every entry, against the JAX
+    package's windowed build."""
+    monkeypatch.setenv('COMPRESSJS_TPU_COMPOSE', 'windowed')
+    comp, header, sym_start = _first_block(_data(kind))
+    cap = 1 << 14
+    payload, bit0, tabs, _, _, _ = _walk_tables(comp, header, sym_start,
+                                                cap, 64)
+    ttabs = convert.decode_tables(*[np.asarray(x) for x in tabs], 'cpu')
+    _, _, nxt = dh._next_maps(torch.from_numpy(payload.copy()), bit0, cap,
+                              ttabs[0], ttabs[3])
+    want = np.asarray(jdh._power_k(jnp.asarray(nxt.numpy()), cap, 50))
+    np.testing.assert_array_equal(dh._power_k(nxt, 50).numpy(), want)
+
+
+@pytest.mark.parametrize('kind', KINDS)
+@pytest.mark.parametrize('padded', [False, True])
+def test_huffman_walk_power_k_matches_jax(kind, padded):
+    """The port's walk against the JAX walk at the port's composition
+    power, which chases all of a padded s_cap where the port stops at
+    n_selectors."""
+    comp, header, sym_start = _first_block(_data(kind))
+    nbits_cap = (comp.shape[0] - (sym_start >> 3)) * 8
+    s_cap = len(header[2])
+    if padded:
+        s_cap = bp._pow2_at_least(s_cap + 1, 64)
+    (js, jc, je), (ps, pc, pe) = _both_walks(
+        comp, header, sym_start, nbits_cap, s_cap,
+        jax_power_k=dh.POWER_K_DEFAULT)
+    assert jc > 0 and pc == jc and pe == je
+    np.testing.assert_array_equal(ps[:pc], js[:jc])
 
 
 @pytest.mark.parametrize('kind', KINDS)

@@ -43,7 +43,7 @@ def stage_targets():
         (dh, 'selector_chase', 'device: walk selector chase (kernel)'),
         (dec, 'bwt_column', 'device: BWT column (all)'),
         (dh, 'rle2_decode', 'device: RLE2 undo'),
-        (dh, 'mtf_decode', 'device: MTF undo'),
+        (dh, 'mtf_decode', 'device: MTF undo (2 kernels + scan)'),
         (dec, '_device_entropy_collect', 'host: read-back + checks'),
         (dh, 'inverse_bwt_block_masked', 'device: inverse BWT'),
         (dh, 'rle1_decode_dev', 'device: RLE1 undo'),
@@ -73,9 +73,13 @@ def main():
             raise AssertionError('decode differs from bz2')
 
     decode()  # warm-up: kernel build, allocator caches
+    from compressjs_tpu_torch.ops import _cuda
+    for name in _cuda.launches:
+        _cuda.launches[name] = 0
     t0 = time.perf_counter()
     decode()
     wall = time.perf_counter() - t0
+    port_launches = dict(_cuda.launches)
 
     with timed_stages(stage_targets()) as (totals, counts):
         t0 = time.perf_counter()
@@ -105,6 +109,7 @@ def main():
         'output_bytes': len(data),
         'decode_wall_s': wall,
         'decode_mb_s': len(data) / wall / 1e6,
+        'port_kernel_launches': port_launches,
         'staged_wall_s': staged_wall,
         'stages_s': {k: totals[k] for k in sorted(totals,
                                                   key=lambda k: -totals[k])},
