@@ -5,8 +5,14 @@
 
 Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, holds each
 kernel equal to its plain version on the card at main-path shapes (MTF
-scan, Huffman allocator, windowed compose, the selector chase at k = 10
-and at the default k, MTF undo), re-encodes the in-repo bzip2 goldens at
+scan, the Huffman allocator on sorted tables and the fused table build,
+windowed compose, the staged selector chase at k = 10 and at the
+default k on sample5's first block and on every block of the sample5x4
+decode, MTF undo), times the latency probes that floor the chase and
+the allocator (one thread's chain from L2 and from shared memory, one
+SM's staging rate), counts the group optimisation's launches and
+syncing reads per block with the fused build and with the build it
+replaced, re-encodes the in-repo bzip2 goldens at
 -9 through ``compress_file_device`` and decodes them through
 ``decompress_file_device``, decodes a stream whose magic scan reports a
 false end magic inside a payload, checks the bytes, times the encode,
@@ -177,9 +183,9 @@ def adversarial_tables():
 
 
 def check_alloc(tables, dev):
-    """Kernel vs plain on every table; returns (max_abs_err, kernel ms,
-    wrapper ms, plain ms, bound ms, bound_by) at the main path's B=6
-    shape."""
+    """cz_alloc_lengths (sorted tables, the Pallas kernel's interface) vs
+    plain on every table; returns (max_abs_err, kernel ms, wrapper ms,
+    plain ms, bound ms, bound_by) at the main path's B=6 shape."""
     from compressjs_tpu_torch.ops import _cuda
     from compressjs_tpu_torch.ops import device_entropy as de
     err = 0
@@ -187,7 +193,7 @@ def check_alloc(tables, dev):
         arrs = arrs.to(dev).contiguous()
         ms = ms.to(dev).contiguous()
         got = de.alloc_lengths(arrs, ms)
-        want = de.alloc_lengths_plain(arrs, ms)
+        want = de.alloc_lengths_plain(arrs, ms)[0]
         err = max(err, int((got.long() - want.long()).abs().max()))
     if err:
         raise AssertionError('allocator kernel differs from its plain '
@@ -206,7 +212,7 @@ def check_alloc(tables, dev):
 
     ms_k = cuda_ms(launch, 50)
     if int(flags.max()) or not torch.equal(
-            out, de.alloc_lengths_plain(arrs, ms)):
+            out, de.alloc_lengths_plain(arrs, ms)[0]):
         raise AssertionError('timed allocator launches differ')
     wrapper = cuda_ms(lambda: de.alloc_lengths(arrs, ms), 50)
     plain = cuda_ms(lambda: de.alloc_lengths_plain(arrs, ms), 5)
@@ -216,22 +222,223 @@ def check_alloc(tables, dev):
     return err, ms_k, wrapper, plain, b[0], b[1]
 
 
-def record_tables(fn):
-    """Run fn() and return every (arrs, ms) the allocator was given."""
+def record_builds(fn):
+    """Run fn() and return every (freqs, m) a table build was given."""
     from compressjs_tpu_torch.ops import device_entropy as de
     seen = []
-    orig = de.alloc_lengths
+    orig = de.code_lengths_batch
 
-    def recorder(arrs, ms):
-        seen.append((arrs.clone(), ms.clone()))
-        return orig(arrs, ms)
+    def recorder(freqs, m, err):
+        seen.append((freqs.clone(), m))
+        return orig(freqs, m, err)
 
-    de.alloc_lengths = recorder
+    de.code_lengths_batch = recorder
     try:
         fn()
     finally:
-        de.alloc_lengths = orig
+        de.code_lengths_batch = orig
     return seen
+
+
+def sorted_tables(builds):
+    """The sorted (arrs, ms) that each build hands its allocator."""
+    from compressjs_tpu_torch.ops import device_entropy as de
+    out = []
+    for freqs, m in builds:
+        arrs = de._sym_sorted(freqs, m)[0].to(torch.int32).contiguous()
+        out.append((arrs, torch.full((freqs.shape[0],), m,
+                                     dtype=torch.int32,
+                                     device=freqs.device)))
+    return out
+
+
+def old_table_build(freqs, m, err):
+    """The table build before the fused kernel: torch.sort of the keys,
+    the allocator kernel with its flags read back at once, a scatter by
+    symbol.  It raises on a flagged table, so `err` stays as it was."""
+    from compressjs_tpu_torch.ops import device_entropy as de
+    arrs, sym_of_slot, valid = de._sym_sorted(freqs, m)
+    ms = torch.full((freqs.shape[0],), m, dtype=torch.int32,
+                    device=freqs.device)
+    return de._unsort(de.alloc_lengths(arrs.to(torch.int32).contiguous(),
+                                       ms), sym_of_slot, valid)
+
+
+def smem_chain_ms(steps, dev):
+    """(device ms of one thread running `steps` dependent shared-memory
+    loads, cz_smem_chain_probe over a random single cycle of 4,096
+    int32; ms of the same chain on the host; the absolute difference of
+    their end points, which must be 0)."""
+    from compressjs_tpu_torch.ops import _cuda
+    n = 4096
+    order = np.random.default_rng(11).permutation(n)
+    ring = np.empty(n, dtype=np.int32)
+    ring[order] = np.roll(order, -1)
+    ring_d = torch.from_numpy(ring).to(dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+
+    def launch():
+        _cuda.launches['smem_chain_probe'] += 1
+        _cuda.check(lib.cz_smem_chain_probe(ring_d.data_ptr(), n, steps,
+                                            out.data_ptr(), stream),
+                    'smem_chain_probe')
+
+    ms = cuda_ms(launch, 20)
+    t0 = time.perf_counter()
+    p = 0
+    for _ in range(steps):
+        p = int(ring[p])
+    plain = (time.perf_counter() - t0) * 1e3
+    err = abs(int(out) - p)
+    if err:
+        raise AssertionError('shared-memory chain probe differs from its '
+                             'host chain')
+    return ms, plain, err
+
+
+def check_code_lengths(builds, dev):
+    """The fused table build (cz_code_lengths) vs its plain version on
+    every build; returns a dict of its error and times at the main path's
+    B=6 shape, beside the build it replaced, and the one-thread floor of
+    allocator phase 1 (2 (m - 2) dependent shared-memory steps)."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import device_entropy as de
+    err = 0
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    for freqs, m in builds:
+        got = de.code_lengths_batch(freqs.to(dev), m, flag)
+        want, flags = de.code_lengths_plain(freqs.cpu(), m)
+        err = max(err, int((got.cpu().long() - want.long()).abs().max()))
+        if int(flags.max()):
+            raise AssertionError('plain table build flagged a table')
+        old = old_table_build(freqs.to(dev), m, flag)
+        err = max(err, int((got.long() - old.long()).abs().max()))
+    if err or int(flag):
+        raise AssertionError('fused table build differs from its plain '
+                             'version: max abs err %d, flag %d'
+                             % (err, int(flag)))
+    freqs, m = [(f.to(dev), m) for f, m in builds if f.shape[0] == de.G][0]
+    lib = _cuda.lib()
+    lens = torch.empty_like(freqs)
+    stream = _cuda.stream_handle(dev)
+
+    def launch():  # the kernel alone
+        _cuda.check(lib.cz_code_lengths(freqs.data_ptr(), m,
+                                        lens.data_ptr(), flag.data_ptr(),
+                                        de.G, de.MAX_LEN, stream),
+                    'code_lengths')
+
+    k_ms = cuda_ms(launch, 50)
+    if int(flag) or not torch.equal(lens, de.code_lengths_plain(
+            freqs.cpu(), m)[0].to(dev)):
+        raise AssertionError('timed fused table builds differ')
+    wrapper = cuda_ms(lambda: de.code_lengths_batch(freqs, m, flag), 50)
+    plain = cuda_ms(lambda: de.code_lengths_plain(freqs.cpu(), m), 5)
+    old = cuda_ms(lambda: old_table_build(freqs, m, flag), 50)
+    # a sort's m log m compares and the allocator's ~16 operations per
+    # slot, per table; frequencies in, lengths out
+    ops = de.G * (m * max(1, int(np.ceil(np.log2(max(m, 2))))) + 16 * m)
+    b_ms, b_by = bound(4 * 2 * freqs.numel() + 4, ops)
+    steps = 2 * (m - 2)
+    floor = smem_chain_ms(steps, dev)[0]
+    return {'err': err, 'ms': k_ms, 'wrapper_ms': wrapper, 'plain_ms': plain,
+            'old_build_ms': old, 'bound_ms': b_ms, 'bound_by': b_by,
+            'm': m, 'phase1_steps': steps, 'latency_floor_ms': floor,
+            'floor_ns_per_step': (floor - smem_chain_ms(0, dev)[0]) * 1e6 /
+            max(steps, 1)}
+
+
+def group_opt_counts(args, build, dev):
+    """One block's optimize_groups_dev with `build` as its table build:
+    device kernels launched (all, and by one table build alone), host
+    syncs (every one that torch.cuda's sync debug mode reports, each
+    under the innermost line of the port on its call stack) and mean wall
+    ms of 5 runs."""
+    import collections
+    import traceback
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from compressjs_tpu_torch.ops import device_entropy as de
+    orig = de.code_lengths_batch
+    de.code_lengths_batch = build
+    try:
+        de.optimize_groups_dev(*args)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            de.optimize_groups_dev(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5 * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            de.optimize_groups_dev(*args)
+            torch.cuda.synchronize()
+        sources = collections.Counter()
+
+        def show(message, category, filename, lineno, *rest):
+            # torch's one-time notice that the debug mode is a prototype
+            # is no sync: only its per-sync warning counts
+            if 'called a synchronizing CUDA operation' not in str(message):
+                return
+            port = [f for f in traceback.extract_stack()
+                    if os.sep + 'compressjs_tpu_torch' + os.sep
+                    in f.filename]
+            where = port[-1] if port else None
+            key = ('%s:%d' % (os.path.basename(where.filename), where.lineno)
+                   if where else 'outside the port')
+            if where is None or where.filename != filename:
+                key += ' (in %s:%d)' % (os.path.relpath(
+                    filename, os.path.dirname(os.path.dirname(
+                        torch.__file__))), lineno)
+            sources[key] += 1
+
+        with warnings.catch_warnings():
+            warnings.simplefilter('always')
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                de.optimize_groups_dev(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        freqs, m = record_builds(lambda: de.optimize_groups_dev(*args))[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_b:
+            build(freqs, m, torch.zeros(1, dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+    finally:
+        de.code_lengths_batch = orig
+    n_builds = len(record_builds(lambda: de.optimize_groups_dev(*args)))
+
+    def kernels(p):
+        return sum(1 for e in p.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith('Memcpy')
+                   and not e.name.startswith('Memset'))
+
+    return {'launches': kernels(prof), 'syncs': sum(sources.values()),
+            'sync_sources': dict(sources),
+            'launches_per_build': kernels(prof_b), 'builds': n_builds,
+            'wall_ms': wall}
+
+
+def record_group_opt_args(fn):
+    """Run fn() and return the arguments of its first optimize_groups_dev
+    call (the first block's)."""
+    from compressjs_tpu_torch.ops import device_entropy as de
+    seen = []
+    orig = de.optimize_groups_dev
+
+    def recorder(syms, count, n_chunks, freq, m):
+        if not seen:
+            seen.append((syms.clone(), count, n_chunks, freq.clone(), m))
+        return orig(syms, count, n_chunks, freq, m)
+
+    de.optimize_groups_dev = recorder
+    try:
+        fn()
+    finally:
+        de.optimize_groups_dev = orig
+    return seen[0]
 
 
 def first_block_walk(comp, dev):
@@ -394,10 +601,68 @@ def check_compose(calls, dev):
     return err, k_ms, w_ms, p_ms, c_b_ms, b_by, l_ms, cold
 
 
-def check_chase(F, sel, sub, dev):
-    """Kernel vs plain on the main-path chase; returns (max_abs_err,
-    kernel ms, wrapper ms, plain ms, bound ms, bound_by, latency bound
-    ms, ns per dependent load)."""
+def adversarial_builds():
+    """(freqs (6, N), m) in symbol order for the fused table build:
+    Fibonacci rows (repeated past 29 symbols: they force the 20-bit
+    limit), flat, zipf and random rows, for small and full alphabets."""
+    from compressjs_tpu_torch.ops.device_entropy import N
+    rng = np.random.default_rng(5)
+    fib = [1, 1]
+    while len(fib) < 29:
+        fib.append(fib[-1] + fib[-2])
+    out = []
+    for m in (3, 4, 29, 130, 258):
+        rows = np.zeros((6, N), dtype=np.int32)
+        rows[0, :m] = rng.permutation(np.resize(fib[:min(m, 29)], m))
+        rows[1, :m] = 5
+        rows[2, :m] = np.minimum(rng.zipf(1.3, m), 900001 // m)
+        rows[3, :m] = rng.integers(0, 900001 // m, m)
+        rows[4, :m] = rng.integers(0, 3, m)
+        rows[5, :m] = rng.permutation(np.arange(m)) * 3000
+        out.append((torch.from_numpy(rows), m))
+    return out
+
+
+def stage_rate(dev):
+    """One SM's TMA streaming rate into shared memory, bytes per ms:
+    cz_stage_probe moves every window of a (6, 2^20) int32 F (25 MB, in
+    L2 after the first pass) through the chase's ring with no chain.
+    Returns (bytes per ms, bytes per pass, ms per pass, checksum error)."""
+    from compressjs_tpu_torch.ops import _cuda
+    G, cap = 6, 1 << 20
+    F = torch.arange(G * cap, dtype=torch.int32, device=dev).view(G, cap)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+
+    def launch():
+        _cuda.launches['stage_probe'] += 1
+        _cuda.check(lib.cz_stage_probe(F.data_ptr(), G, cap,
+                                       stats.data_ptr(), stream),
+                    'stage_probe')
+
+    ms = cuda_ms(launch, 10)
+    nbytes, acc = stats.tolist()
+    # the probe XORs the first element of every staged window
+    first = np.arange(0, cap, 2048, dtype=np.int64)
+    want = int(np.bitwise_xor.reduce(first.astype(np.int32)))
+    err = abs(int(np.int32(acc)) - want)
+    if err or nbytes != G * cap * 4:
+        raise AssertionError('stage probe: %d bytes, checksum %d vs %d'
+                             % (nbytes, acc, want))
+    plain = cuda_ms(lambda: np.bitwise_xor.reduce(
+        F[0, ::2048].cpu().numpy()), 2)
+    return nbytes / ms, nbytes, ms, err, plain
+
+
+_RINGS = {}   # the L2 probe's random cycle, made once per size
+
+
+def check_chase(F, sel, sub, dev, rate):
+    """The staged chase kernel vs plain on one main-path chase, beside
+    the one-thread L2 chase it replaced (cz_chase_probe on the same
+    input); returns a dict of errors, times, floors and what it staged.
+    rate: one SM's staging rate, bytes per ms (`stage_rate`)."""
     from compressjs_tpu_torch.ops import _cuda
     from compressjs_tpu_torch.ops import device_huffman as dh
     got = dh.selector_chase(F, sel, sub)
@@ -409,46 +674,90 @@ def check_chase(F, sel, sub, dev):
     lib = _cuda.lib()
     stream = _cuda.stream_handle(dev)
     out = torch.empty_like(sel)
+    old = torch.empty_like(sel)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
     G, cap = F.shape
+    n = sel.shape[0]
 
     def launch():  # the kernel alone, outside the wrapper
         _cuda.check(lib.cz_selector_chase(
-            F.data_ptr(), sel.data_ptr(), out.data_ptr(), G, cap,
-            sel.shape[0], sub, stream), 'selector_chase')
+            F.data_ptr(), sel.data_ptr(), out.data_ptr(), G, cap, n, sub,
+            stats.data_ptr(), stream), 'selector_chase')
 
-    ms = cuda_ms(launch, 5)
-    if not torch.equal(out, want):
+    def launch_old():  # the one-thread L2 chase the staged kernel replaced
+        _cuda.launches['chase_probe'] += 1
+        _cuda.check(lib.cz_chase_probe(
+            F.data_ptr(), sel.data_ptr(), old.data_ptr(), G, cap, n, sub,
+            stream), 'chase_probe')
+
+    ms = cuda_ms(launch, 10)
+    old_ms = cuda_ms(launch_old, 5)
+    old_err = int((old.long() - want.long()).abs().max())
+    if not torch.equal(out, want) or old_err:
         raise AssertionError('timed chase launches differ')
-    wrapper = cuda_ms(lambda: dh.selector_chase(F, sel, sub), 5)
+    staged, global_loads, window, stages = stats.tolist()
+    wrapper = cuda_ms(lambda: dh.selector_chase(F, sel, sub), 10)
     plain = cuda_ms(lambda: dh.selector_chase_plain(F, sel, sub), 1)
     # the entries of F the chain reads, the selectors, the starts; a
     # multiply-add, two compares per step
-    steps = sel.shape[0] * sub
-    b_ms, b_by = bound(4 * (steps + 2 * sel.shape[0]), 4 * steps)
-    # what bounds the chain is the latency of its dependent loads: time
-    # one thread's pointer chase at the same step count over an array of
-    # F's size, a random single cycle held in L2 (the same kernel with
-    # one row and every selector 0, so each step is p <- ring[p])
-    n = G * cap
-    order = np.random.default_rng(7).permutation(n)
-    ring = np.empty(n, dtype=np.int32)
-    ring[order] = np.roll(order, -1)
-    ring = torch.from_numpy(ring).to(dev)
+    steps = n * sub
+    b_ms, b_by = bound(4 * (steps + 2 * n), 4 * steps)
+    # the L2 latency floor: the old kernel's chain over a random single
+    # cycle of F's size held in L2 (one row, every selector 0, so each
+    # step is p <- ring[p])
+    if _RINGS.get('n') != G * cap:
+        order = np.random.default_rng(7).permutation(G * cap)
+        ring = np.empty(G * cap, dtype=np.int32)
+        ring[order] = np.roll(order, -1)
+        _RINGS.update(n=G * cap, ring=torch.from_numpy(ring).to(dev))
+    ring = _RINGS['ring']
     zeros = torch.zeros_like(sel)
     probe = torch.empty_like(sel)
 
     def chase_ring():
-        _cuda.check(lib.cz_selector_chase(
-            ring.data_ptr(), zeros.data_ptr(), probe.data_ptr(), 1, n,
-            sel.shape[0], sub, stream), 'selector_chase')
+        _cuda.launches['chase_probe'] += 1
+        _cuda.check(lib.cz_chase_probe(
+            ring.data_ptr(), zeros.data_ptr(), probe.data_ptr(), 1,
+            G * cap, n, sub, stream), 'chase_probe')
 
     ring.sum()  # pull the ring into L2
     lat_ms = cuda_ms(chase_ring, 5)
-    if not torch.equal(probe, dh.selector_chase_plain(ring.view(1, n),
-                                                      zeros, sub)):
+    if not torch.equal(probe, dh.selector_chase_plain(
+            ring.view(1, G * cap), zeros, sub)):
         raise AssertionError('latency probe differs from its plain chase')
-    return err, ms, wrapper, plain, b_ms, b_by, lat_ms, \
-        lat_ms * 1e6 / steps
+    smem_ms, smem_plain, smem_err = smem_chain_ms(steps, dev)
+    # positions staged: staged bytes over 4 B a row-entry, per row
+    span = int(want[-1]) + 1
+    return {'err': err, 'ms': ms, 'wrapper_ms': wrapper, 'plain_ms': plain,
+            'old_ms': old_ms, 'old_err': old_err, 'bound_ms': b_ms,
+            'bound_by': b_by, 'steps': steps, 'l2_floor_ms': lat_ms,
+            'l2_ns_per_load': lat_ms * 1e6 / steps,
+            'smem_floor_ms': smem_ms, 'smem_plain_ms': smem_plain,
+            'smem_err': smem_err,
+            'stream_floor_ms': staged / rate,
+            'staged_bytes': staged, 'global_loads': global_loads,
+            'window': window, 'stages': stages,
+            'rows_per_position': staged / 4 / max(span, 1)}
+
+
+def decode_chases(comp):
+    """Run one decode of `comp` and return each block's chase input (F,
+    selectors, steps per selector)."""
+    import compressjs_tpu_torch as cz
+    from compressjs_tpu_torch.ops import device_huffman as dh
+    seen = []
+    orig = dh.selector_chase
+
+    def recorder(F, sel, sub):
+        seen.append((F.clone(), sel.clone(), sub))
+        return orig(F, sel, sub)
+
+    dh.selector_chase = recorder
+    try:
+        cz.decompress_file_device(comp, device='cuda')
+    finally:
+        dh.selector_chase = orig
+    return seen
 
 
 def main():
@@ -492,13 +801,40 @@ def main():
     print('  random block:  kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, '
           'bound %.5f ms (%s)' % mtf_rand[1:])
 
-    phase('allocator kernel vs plain version')
-    tables = record_tables(
+    phase('allocator kernels vs plain versions')
+    builds = record_builds(
         lambda: cz.compress_file_device(s5, level=9, device='cuda'))
-    tables.append(adversarial_tables())
+    n_s5_builds = len(builds)
+    builds += adversarial_builds()
+    tables = sorted_tables(builds) + [adversarial_tables()]
     alloc = check_alloc(tables, dev)
-    print('  %d launches of tables: kernel %.4f ms, wrapper %.4f ms, '
-          'plain %.3f ms, bound %.6f ms (%s)' % ((len(tables),) + alloc[1:]))
+    print('  cz_alloc_lengths (sorted tables), %d launches of tables: '
+          'kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, bound %.6f ms '
+          '(%s)' % ((len(tables),) + alloc[1:]))
+    build = check_code_lengths(builds, dev)
+    print('  cz_code_lengths (whole table build), %d builds (%d from the '
+          'sample5 encode): kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, '
+          'bound %.6f ms (%s); the build it replaced (torch.sort + '
+          'cz_alloc_lengths + its flag read + scatter) %.4f ms'
+          % (len(builds), n_s5_builds, build['ms'], build['wrapper_ms'],
+             build['plain_ms'], build['bound_ms'], build['bound_by'],
+             build['old_build_ms']))
+    print('  one-thread latency floor of phase 1 at m = %d: %d dependent '
+          'shared-memory steps in %.4f ms (%.2f ns a step)'
+          % (build['m'], build['phase1_steps'], build['latency_floor_ms'],
+             build['floor_ns_per_step']))
+    go_args = record_group_opt_args(
+        lambda: cz.compress_file_device(s5x4[:899981], level=9,
+                                        device='cuda'))
+    from compressjs_tpu_torch.ops import device_entropy as de
+    go_new = group_opt_counts(go_args, de.code_lengths_batch, dev)
+    go_old = group_opt_counts(go_args, old_table_build, dev)
+    for name, c in (('fused build', go_new), ('build it replaced', go_old)):
+        print('  group optimisation of sample5x4\'s first block, %s: %d '
+              'table builds, %d device launches (%d per build), %d host '
+              'syncs (%s), %.3f ms wall'
+              % (name, c['builds'], c['launches'], c['launches_per_build'],
+                 c['syncs'], c['sync_sources'], c['wall_ms']))
 
     phase('compose kernel vs plain version')
     from compressjs_tpu_torch.ops.device_huffman import POWER_K_DEFAULT
@@ -514,19 +850,46 @@ def main():
           'ms, kernel with a cold L2 %.4f ms' % comp[1:])
 
     phase('chase kernel vs plain version')
+    rate, st_bytes, st_ms, st_err, st_plain = stage_rate(dev)
+    print('  one SM\'s TMA staging rate: %d bytes in %.4f ms = %.1f GB/s'
+          % (st_bytes, st_ms, rate / 1e6))
     chases = {}
     for k in sorted({10, POWER_K_DEFAULT}):
         _, _, F_k, sel_k, sub_k = first_block_maps(walk, k)
-        chases[k] = check_chase(F_k, sel_k, sub_k, dev)
-        print('  k = %d: %d selectors x %d steps = %d steps: kernel %.4f '
-              'ms, wrapper %.4f ms, plain %.3f ms, bound %.6f ms (%s); '
-              'one-thread chase of a random ring of F\'s size at the same '
-              'steps %.4f ms (%.1f ns per dependent load)'
-              % ((k, sel_k.shape[0], sub_k, sel_k.shape[0] * sub_k)
-                 + chases[k][1:]))
+        c = chases[k] = check_chase(F_k, sel_k, sub_k, dev, rate)
+        print('  sample5 first block, k = %d: %d selectors x %d steps: '
+              'staged kernel %.4f ms (wrapper %.4f ms) beside the '
+              'one-thread L2 chase it replaced %.4f ms; plain %.3f ms; '
+              'bound %.6f ms (%s)'
+              % (k, sel_k.shape[0], sub_k, c['ms'], c['wrapper_ms'],
+                 c['old_ms'], c['plain_ms'], c['bound_ms'], c['bound_by']))
+        print('    floors: staged bytes %.4f ms (%d B at one SM\'s rate), '
+              'shared-memory chain %.4f ms (%d dependent loads), L2 chain '
+              '%.4f ms (%.1f ns a load); window %d positions, %d stages, '
+              '%.2f rows staged per position, %d global loads'
+              % (c['stream_floor_ms'], c['staged_bytes'],
+                 c['smem_floor_ms'], c['steps'], c['l2_floor_ms'],
+                 c['l2_ns_per_load'], c['window'], c['stages'],
+                 c['rows_per_position'], c['global_loads']))
         del F_k
     chase = chases[POWER_K_DEFAULT]
     del nxt, calls, F
+    dec_chase = {'ms': 0.0, 'old_ms': 0.0, 'stream_floor_ms': 0.0,
+                 'smem_floor_ms': 0.0, 'staged_bytes': 0, 'steps': 0,
+                 'blocks': 0}
+    for F_b, sel_b, sub_b in decode_chases(s5x4_comp):
+        c = check_chase(F_b, sel_b, sub_b, dev, rate)
+        for key in ('ms', 'old_ms', 'stream_floor_ms', 'smem_floor_ms',
+                    'staged_bytes', 'steps'):
+            dec_chase[key] += c[key]
+        dec_chase['blocks'] += 1
+        del F_b
+    print('  sample5x4 decode, %d chases: staged kernel %.4f ms beside the '
+          'old kernel\'s %.4f ms; floors: staged bytes %.4f ms (%d B), '
+          'shared-memory chain %.4f ms (%d steps)'
+          % (dec_chase['blocks'], dec_chase['ms'], dec_chase['old_ms'],
+             dec_chase['stream_floor_ms'], dec_chase['staged_bytes'],
+             dec_chase['smem_floor_ms'], dec_chase['steps']))
 
     phase('MTF-undo kernel vs plain version')
     idx, total = first_block_mtf_indices(walk, dbuf_size)
@@ -556,7 +919,7 @@ def main():
     if bz2.decompress(out) != s5x4:
         raise AssertionError('sample5x4 encode does not round-trip')
     if launches['mtf_scan'] != n_blocks or \
-            launches['alloc_lengths'] < n_blocks:
+            launches['code_lengths'] < n_blocks:
         raise AssertionError('main path skipped a kernel: %s' % launches)
 
     phase('main path: sample5x4 -9 decode')
@@ -656,6 +1019,11 @@ def main():
           'events %.3f s' % (wall, len(s5x4) / wall / 1e6,
                              t0.elapsed_time(t1) / 1e3))
 
+    # the probes are no kernel of the main path: their counts, read from
+    # the encode's and the decode's runs, show that neither launched one
+    def probe_launches(name):
+        return launches[name] + dec_launches[name]
+
     kernels = [
         {'name': 'mtf_scan', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/mtf_scan.cu',
@@ -665,12 +1033,25 @@ def main():
          'ms': mtf_real[1], 'plain_ms': mtf_real[3],
          'bound_ms': mtf_real[4], 'bound_by': mtf_real[5],
          'library_ms': None},
+        {'name': 'code_lengths', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
+         'replaces': 'compressjs_tpu/ops/device_entropy.py:238 (with the '
+                     'sort and scatter of code_lengths_batch :438)',
+         'launches': launches['code_lengths'],
+         'max_abs_err': build['err'], 'ms': build['ms'],
+         'plain_ms': build['plain_ms'], 'bound_ms': build['bound_ms'],
+         'bound_by': build['bound_by'], 'library_ms': None,
+         'wrapper_ms': build['wrapper_ms'],
+         'replaced_build_ms': build['old_build_ms'],
+         'latency_floor_ms': build['latency_floor_ms'],
+         'group_opt_block': {'fused': go_new, 'replaced': go_old}},
         {'name': 'alloc_lengths', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
          'replaces': 'compressjs_tpu/ops/device_entropy.py:238',
-         'launches': launches['alloc_lengths'],
+         'launches': launches['alloc_lengths'], 'main_path': False,
          'max_abs_err': alloc[0], 'ms': alloc[1], 'plain_ms': alloc[3],
-         'bound_ms': alloc[4], 'bound_by': alloc[5], 'library_ms': None},
+         'bound_ms': alloc[4], 'bound_by': alloc[5], 'library_ms': None,
+         'wrapper_ms': alloc[2]},
         {'name': 'compose_windowed', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/compose_windowed.cu',
          'replaces': 'compressjs_tpu/ops/pallas_compose.py:61',
@@ -683,13 +1064,50 @@ def main():
          'replaces': 'compressjs_tpu/ops/device_huffman.py:291 (lax.scan, '
                      'no TPU kernel)',
          'launches': dec_launches['selector_chase'],
-         'max_abs_err': max(c[0] for c in chases.values()),
-         'ms': chase[1], 'plain_ms': chase[3],
-         'bound_ms': chase[4], 'bound_by': chase[5], 'library_ms': None,
-         # a chain of dependent loads: its floor is their latency
-         'latency_bound_ms': chase[6], 'ns_per_dependent_load': chase[7],
-         'power_k': POWER_K_DEFAULT, 'k10_ms': chases[10][1],
-         'k10_latency_bound_ms': chases[10][6]},
+         'max_abs_err': max(c['err'] for c in chases.values()),
+         'ms': chase['ms'], 'plain_ms': chase['plain_ms'],
+         'bound_ms': chase['bound_ms'], 'bound_by': chase['bound_by'],
+         'library_ms': None, 'wrapper_ms': chase['wrapper_ms'],
+         'power_k': POWER_K_DEFAULT,
+         # a chain of dependent loads fed by staged windows: its floors
+         'stream_floor_ms': chase['stream_floor_ms'],
+         'smem_chain_floor_ms': chase['smem_floor_ms'],
+         'staged_bytes': chase['staged_bytes'],
+         'window': chase['window'], 'stages': chase['stages'],
+         'rows_per_position': chase['rows_per_position'],
+         'global_loads': chase['global_loads'],
+         'replaced_kernel_ms': chase['old_ms'],
+         'k10_ms': chases[10]['ms'], 'k10_replaced_ms': chases[10]['old_ms'],
+         's5x4_decode_ms': dec_chase['ms'],
+         's5x4_decode_replaced_ms': dec_chase['old_ms']},
+        {'name': 'chase_probe', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/probes.cu',
+         'replaces': 'compressjs_tpu/ops/device_huffman.py:291 (lax.scan, '
+                     'no TPU kernel); the chase kernel before it was staged',
+         'launches': probe_launches('chase_probe'), 'main_path': False,
+         'max_abs_err': chase['old_err'], 'ms': chase['old_ms'],
+         'plain_ms': chase['plain_ms'], 'bound_ms': chase['bound_ms'],
+         'bound_by': chase['bound_by'], 'library_ms': None,
+         # over a random cycle of F's size in L2: one load's latency
+         'l2_latency_floor_ms': chase['l2_floor_ms'],
+         'ns_per_dependent_load': chase['l2_ns_per_load']},
+        {'name': 'smem_chain_probe', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/probes.cu',
+         'replaces': 'none (a latency probe)',
+         'launches': probe_launches('smem_chain_probe'), 'main_path': False,
+         'max_abs_err': max(c['smem_err'] for c in chases.values()),
+         'ms': chase['smem_floor_ms'], 'plain_ms': chase['smem_plain_ms'],
+         'bound_ms': bound(4 * 4096 + 4, chase['steps'])[0],
+         'bound_by': bound(4 * 4096 + 4, chase['steps'])[1],
+         'library_ms': None, 'steps': chase['steps']},
+        {'name': 'stage_probe', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/selector_chase.cu',
+         'replaces': 'none (a staging-rate probe)',
+         'launches': probe_launches('stage_probe'), 'main_path': False,
+         'max_abs_err': st_err, 'ms': st_ms,
+         'plain_ms': st_plain, 'bound_ms': bound(st_bytes, 0)[0],
+         'bound_by': 'bytes', 'library_ms': None,
+         'bytes_per_s': rate * 1e3},
         {'name': 'mtf_undo', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/mtf_undo.cu',
          'replaces': 'compressjs_tpu/ops/jax_kernels.py:617 (lax.scan, '

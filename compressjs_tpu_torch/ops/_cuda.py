@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu', 'compose_windowed.cu',
-           'selector_chase.cu', 'mtf_undo.cu')
+           'selector_chase.cu', 'mtf_undo.cu', 'probes.cu')
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 CFLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                  '-Xptxas', '-v']
@@ -30,9 +30,12 @@ CFLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 _lock = threading.Lock()
 _lib = None
 # kernel launches so far, by kernel: each wrapper adds one where it calls
-# its kernel's C entry point, and nowhere else
-launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'compose_windowed': 0,
-            'selector_chase': 0, 'mtf_undo': 0}
+# its kernel's C entry point, and nowhere else (the probes, csrc/probes.cu
+# and cz_stage_probe, have no wrapper in the package: chip_smoke.py counts
+# them where it launches them)
+launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'code_lengths': 0,
+            'compose_windowed': 0, 'selector_chase': 0, 'mtf_undo': 0,
+            'chase_probe': 0, 'smem_chain_probe': 0, 'stage_probe': 0}
 # what the last build did: wall seconds and nvcc's messages (the
 # -Xptxas -v register and shared-memory lines); empty if reused
 build_info = {'seconds': 0.0, 'log': '', 'path': None}
@@ -46,9 +49,12 @@ def _nvcc():
     return path
 
 
-def _build():
-    srcs = [os.path.join(CSRC, s) for s in SOURCES]
-    h = hashlib.sha256(' '.join(CFLAGS).encode())
+def _build(sources=SOURCES, defines=()):
+    """Compile `sources` (names under csrc/) with `defines` (NAME=VALUE
+    macros) and link them into one shared library; returns its path."""
+    flags = CFLAGS + ['-D' + d for d in defines]
+    srcs = [os.path.join(CSRC, s) for s in sources]
+    h = hashlib.sha256(' '.join(flags).encode())
     for s in srcs:
         with open(s, 'rb') as f:
             h.update(f.read())
@@ -66,7 +72,7 @@ def _build():
         obj = os.path.join(out_dir, os.path.basename(s) + tag + '.o')
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *CFLAGS, '-c', '-o', obj, s],
+            [nvcc, *flags, '-c', '-o', obj, s],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
     for s, p in zip(srcs, procs):
@@ -94,10 +100,18 @@ def _bind(lib):
     lib.cz_mtf_scan.restype = i32
     lib.cz_alloc_lengths.argtypes = [p, p, p, p, i32, i32, p]
     lib.cz_alloc_lengths.restype = i32
+    lib.cz_code_lengths.argtypes = [p, i32, p, p, i32, i32, p]
+    lib.cz_code_lengths.restype = i32
     lib.cz_compose_windowed.argtypes = [p, p, p, i32, i64, i32, i32, p]
     lib.cz_compose_windowed.restype = i32
-    lib.cz_selector_chase.argtypes = [p, p, p, i32, i64, i32, i32, p]
+    lib.cz_selector_chase.argtypes = [p, p, p, i32, i64, i32, i32, p, p]
     lib.cz_selector_chase.restype = i32
+    lib.cz_stage_probe.argtypes = [p, i32, i64, p, p]
+    lib.cz_stage_probe.restype = i32
+    lib.cz_chase_probe.argtypes = [p, p, p, i32, i64, i32, i32, p]
+    lib.cz_chase_probe.restype = i32
+    lib.cz_smem_chain_probe.argtypes = [p, i32, i32, p, p]
+    lib.cz_smem_chain_probe.restype = i32
     lib.cz_mtf_undo_perm.argtypes = [p, p, i64, i32, p]
     lib.cz_mtf_undo_perm.restype = i32
     lib.cz_mtf_undo_decode.argtypes = [p, p, p, i64, i32, p]

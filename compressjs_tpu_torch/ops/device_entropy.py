@@ -2,11 +2,14 @@
 block's symbols never leave device memory between RLE2 and the packed
 payload (counterpart of ``compressjs_tpu.ops.device_entropy``).
 
-* `alloc_lengths` -- the length-limited allocator: the CUDA kernel
-  ``csrc/alloc_lengths.cu`` for a CUDA tensor, the scalar loops of
-  ``host.huffman_allocator`` (its plain version) for a CPU tensor.
-* `code_lengths_batch` / `canonical_codes_dev` -- the (freq<<9 | sym)
-  sort trick and the closed-form canonical codes.
+* `alloc_lengths` -- the length-limited allocator on sorted tables: the
+  CUDA kernel ``csrc/alloc_lengths.cu`` for a CUDA tensor, the scalar
+  loops of ``host.huffman_allocator`` (its plain version) for a CPU
+  tensor.
+* `code_lengths_batch` -- whole table builds, the (freq<<9 | sym) sort,
+  the allocator and the scatter back by symbol in one kernel launch on
+  the card; its error flag waits in a device tensor for the caller.
+* `canonical_codes_dev` -- the closed-form canonical codes.
 * `optimize_groups_dev` -- the greedy split and Lloyd refinement, with
   the host encoder's tie-breaking, on per-50-symbol chunk histograms.
 * `payload_pack_words_dev` -- Huffman codes packed into big-endian
@@ -31,6 +34,7 @@ G = 6              # most coding groups
 GROUP_SIZE = 50    # symbols per selector
 _INF_COST = 0x3FFFFFFF
 _BIG = 0x7FFFFFFF
+_KEY_LIMIT = 1 << 22   # frequencies below it fit the (freq << 9 | sym) key
 
 
 # ---------------------------------------------------------------------------
@@ -38,21 +42,44 @@ _BIG = 0x7FFFFFFF
 
 def alloc_lengths_plain(arrs, ms):
     """Plain version of `alloc_lengths`: the scalar loops, table by
-    table, on the host."""
+    table, on the host.  Returns (lengths (B, N) int32, flags (B,)
+    int32): flags[b] = 1 where table b gave no valid code lengths (m
+    outside 0..N, or a length outside 1..MAX_LEN)."""
     rows = arrs.cpu().tolist()
+    flags = []
     for row, m in zip(rows, ms.cpu().tolist()):
+        if not 0 <= m <= N:
+            flags.append(1)
+            continue
         head = row[:m]
         allocate_huffman_code_lengths(head, MAX_LEN)
         row[:m] = head
-    return torch.tensor(rows, dtype=torch.int32, device=arrs.device)
+        flags.append(int(m > 0 and not 1 <= min(head) <= max(head)
+                         <= MAX_LEN))
+    return (torch.tensor(rows, dtype=torch.int32, device=arrs.device),
+            torch.tensor(flags, dtype=torch.int32, device=arrs.device))
+
+
+def _raise_if_flagged(flags, what):
+    if flags.numel() and int(flags.max()):
+        raise RuntimeError('%s: table(s) %s broke a loop bound of the '
+                           'allocator' % (what, torch.nonzero(flags).view(
+                               -1).tolist()))
 
 
 def alloc_lengths(arrs, ms):
-    """Code lengths for a batch of tables: arrs (B, N) int32 whose first
-    ms[b] slots of row b hold sorted frequencies; those slots become code
-    lengths of at most MAX_LEN bits, the rest are kept."""
+    """Code lengths for a batch of sorted tables: arrs (B, N) int32 whose
+    first ms[b] slots of row b hold sorted frequencies; those slots
+    become code lengths of at most MAX_LEN bits, the rest are kept.  The
+    CUDA kernel (``csrc/alloc_lengths.cu`` cz_alloc_lengths) for a CUDA
+    tensor, the plain version for a CPU tensor.  Reads the tables' error
+    flags back and raises RuntimeError on a flagged table: the encode's
+    table builds do not come here but go through `code_lengths_batch`,
+    whose flag waits for the caller."""
     if arrs.device.type == 'cpu':
-        return alloc_lengths_plain(arrs, ms)
+        out, flags = alloc_lengths_plain(arrs, ms)
+        _raise_if_flagged(flags, 'alloc_lengths')
+        return out
     _cuda.require_cuda(arrs, 'alloc_lengths')
     B = arrs.shape[0]
     if (arrs.shape != (B, N) or ms.shape != (B,)
@@ -62,17 +89,15 @@ def alloc_lengths(arrs, ms):
         raise ValueError('alloc_lengths takes (B, %d) and (B,) contiguous '
                          'int32 tensors on one device' % N)
     out = torch.empty_like(arrs)
-    err = torch.empty(B, dtype=torch.int32, device=arrs.device)
+    flags = torch.empty(B, dtype=torch.int32, device=arrs.device)
     lib = _cuda.lib()
     _cuda.launches['alloc_lengths'] += 1
     _cuda.check(lib.cz_alloc_lengths(arrs.data_ptr(), ms.data_ptr(),
-                                     out.data_ptr(), err.data_ptr(), B,
+                                     out.data_ptr(), flags.data_ptr(), B,
                                      MAX_LEN,
                                      _cuda.stream_handle(arrs.device)),
                 'alloc_lengths')
-    if B and int(err.max()):
-        raise RuntimeError('alloc_lengths: table(s) %s broke a loop bound'
-                           % torch.nonzero(err).view(-1).tolist())
+    _raise_if_flagged(flags, 'alloc_lengths')
     return out
 
 
@@ -96,14 +121,54 @@ def _unsort(values_sorted, sym_of_slot, valid):
     return out[..., :N]
 
 
-def code_lengths_batch(freqs, m):
+def code_lengths_plain(freqs, m):
+    """Plain version of the fused table build: `_sym_sorted`, then
+    `alloc_lengths_plain`, then `_unsort`.  Returns (lengths by symbol
+    (B, N) int32, flags (B,) int32); a table with a frequency the sort
+    key cannot hold (outside 0..2^22 - 1) is flagged, as the kernel
+    flags it."""
+    f = freqs[:, :m].to(torch.int64)
+    bad_key = ((f < 0) | (f >= _KEY_LIMIT)).any(1)
+    arrs, sym_of_slot, valid = _sym_sorted(
+        torch.where(bad_key[:, None], 0, freqs.to(torch.int64)), m)
+    ms = torch.full((freqs.shape[0],), m, dtype=torch.int32)
+    lens, flags = alloc_lengths_plain(arrs.to(torch.int32), ms)
+    return (_unsort(lens, sym_of_slot, valid),
+            flags | bad_key.to(torch.int32))
+
+
+def code_lengths_batch(freqs, m, err):
     """Batched table builds: freqs (B, N) -> (B, N) int32 code lengths by
-    symbol (zeros past the alphabet size m)."""
-    arrs, sym_of_slot, valid = _sym_sorted(freqs, m)
-    ms = torch.full((freqs.shape[0],), m, dtype=torch.int32,
-                    device=freqs.device)
-    lens = alloc_lengths(arrs.to(torch.int32).contiguous(), ms)
-    return _unsort(lens, sym_of_slot, valid)
+    symbol (zeros past the alphabet size m).
+
+    A table the allocator cannot build sets `err`, a (1,) int32 tensor on
+    freqs' device that the caller owns and reads when it fetches
+    something anyway (never cleared here, never read here).  For a CUDA
+    tensor the whole build is one launch of the kernel
+    ``csrc/alloc_lengths.cu`` cz_code_lengths; for a CPU tensor it is
+    the plain version."""
+    if freqs.device.type == 'cpu':
+        lens, flags = code_lengths_plain(freqs, m)
+        if flags.numel():
+            err |= flags.max()
+        return lens
+    _cuda.require_cuda(freqs, 'code_lengths_batch')
+    if (freqs.dim() != 2 or freqs.shape[1] != N or not 0 <= m <= N
+            or freqs.dtype != torch.int32 or not freqs.is_contiguous()):
+        raise ValueError('code_lengths_batch takes (B, %d) contiguous int32 '
+                         'frequencies and 0 <= m <= %d' % (N, N))
+    if (err.shape != (1,) or err.dtype != torch.int32
+            or err.device != freqs.device):
+        raise ValueError('code_lengths_batch: err must be a (1,) int32 '
+                         'tensor on the frequencies\' device')
+    lens = torch.empty_like(freqs)
+    lib = _cuda.lib()
+    _cuda.launches['code_lengths'] += 1
+    _cuda.check(lib.cz_code_lengths(freqs.data_ptr(), m, lens.data_ptr(),
+                                    err.data_ptr(), freqs.shape[0], MAX_LEN,
+                                    _cuda.stream_handle(freqs.device)),
+                'code_lengths')
+    return lens
 
 
 def canonical_codes_dev(lengths, m):
@@ -176,15 +241,18 @@ def optimize_groups_dev(syms, count, n_chunks, freq, m):
     n_chunks: ceil(n_syms / 50); freq: (>= N,) global frequencies; m:
     alphabet size (= eob + 1)."""
     dev = syms.device
+    # set by a table build the allocator could not finish; read with the
+    # Lloyd loop's cost, so no table build waits on the host
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
     hist_f = chunk_hist_dev(syms, count, n_chunks).to(torch.float64)
     valid_chunk = torch.arange(n_chunks, device=dev) < \
         (count + GROUP_SIZE - 1) // GROUP_SIZE
     garange = torch.arange(G, device=dev)
 
     fbuf = torch.where(torch.arange(N, device=dev) < m,
-                       freq[:N].to(torch.int64), 0)
+                       freq[:N].to(torch.int32), 0)
     row01 = code_lengths_batch(torch.stack([fbuf, torch.ones_like(fbuf)]),
-                               m)
+                               m, err)
     lens = torch.stack([row01[0]] + [row01[1]] * (G - 1))
 
     # greedy split of the busiest group until the target count
@@ -201,7 +269,7 @@ def optimize_groups_dev(syms, count, n_chunks, freq, m):
         rank = _rank_stable(torch.where(member, wcosts, _BIG))
         sel = torch.where(member & (rank >= member.sum() >> 1), g, sel)
         new_lens = code_lengths_batch(
-            _freqs_by_group(hist_f, _coded_by(sel, valid_chunk)), m)
+            _freqs_by_group(hist_f, _coded_by(sel, valid_chunk)), m, err)
         lens = torch.where((garange <= g)[:, None], new_lens, lens)
         g += 1
 
@@ -214,13 +282,18 @@ def optimize_groups_dev(syms, count, n_chunks, freq, m):
     prev_cost = _BIG
     for _ in range(4):
         coded_by = _coded_by(sel, valid_chunk)
-        new_lens = code_lengths_batch(_freqs_by_group(hist_f, coded_by), m)
+        new_lens = code_lengths_batch(_freqs_by_group(hist_f, coded_by), m,
+                                      err)
         keep = active & (coded_by.sum(0) > 0)
         lens = torch.where(keep[:, None], new_lens, lens)
         costs = _costs_from_hist(hist_f, lens, active)
         sel = torch.argmin(costs, 1)
         chosen = costs.gather(1, sel[:, None])[:, 0]
-        cost = int(torch.where(valid_chunk, chosen, 0).sum())
+        cost, bad = torch.stack([torch.where(valid_chunk, chosen, 0).sum(),
+                                 err[0].to(torch.int64)]).tolist()
+        if bad:
+            raise RuntimeError('optimize_groups_dev: a coding table broke '
+                               'a loop bound of the allocator')
         if cost >= prev_cost:
             break
         prev_cost = cost

@@ -12,8 +12,9 @@ The sequential bit-by-bit walk becomes four parallel stages:
    card);
 3. `selector_chase`: chunk-boundary bit positions follow
    ``p <- F[sel[c]][p]``, ``50 / k`` times per selector -- one dependent
-   chain, run by one CUDA thread (``csrc/selector_chase.cu``) on the card
-   and by its plain version, a host loop, for a CPU tensor;
+   chain, run on the card by one CUDA thread that reads F from windows
+   staged ahead of it in shared memory (``csrc/selector_chase.cu``), and
+   by its plain version, a host loop, for a CPU tensor;
 4. every 50-symbol chunk then decodes in lock-step, 50 vector steps.
 
 `decode_block_full_dev` follows the walk with RLE2 undo, MTF undo, the
@@ -37,6 +38,8 @@ BIG_LIMIT = 1 << 28    # stands in for the int64-max limit sentinel
 # per selector, so the chase, one thread's chain of dependent loads, is
 # as short as one thread can make it
 POWER_K_DEFAULT = 50
+# most selectors one chase launch takes: a bzip2 block has at most 32,767
+CHASE_MAX_SEL = 32768
 _MASK32 = 0xFFFFFFFF
 
 
@@ -159,24 +162,27 @@ def selector_chase_plain(F, sel, sub):
 def selector_chase(F, sel, sub):
     """Start bit of every 50-symbol chunk: starting at p = 0, chunk c
     starts at p and then p <- F[sel[c], p], sub times (F = nxt^(50/sub)).
-    F (G, cap) int32, sel (s_cap,) int32; returns (s_cap,) int32.  The
-    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    F (G, cap) int32, sel (n,) int32 with n <= CHASE_MAX_SEL; returns
+    (n,) int32.  The CUDA kernel (F staged through shared memory) for a
+    CUDA tensor, the plain version for a CPU tensor."""
     if F.device.type == 'cpu':
         return selector_chase_plain(F, sel, sub)
     _cuda.require_cuda(F, 'selector_chase')
     if (F.dim() != 2 or sel.dim() != 1 or F.dtype != torch.int32
             or sel.dtype != torch.int32 or sel.device != F.device
             or not F.is_contiguous() or not sel.is_contiguous()
-            or sub < 1):
-        raise ValueError('selector_chase takes a contiguous (G, cap) and '
-                         '(s_cap,) int32 tensor on one device, sub >= 1')
+            or sub < 1 or sel.shape[0] > CHASE_MAX_SEL
+            or F.shape[1] >= 1 << 31):
+        raise ValueError('selector_chase takes a contiguous (G, cap < 2^31) '
+                         'and (n <= %d,) int32 tensor on one device, '
+                         'sub >= 1' % CHASE_MAX_SEL)
     G, cap = F.shape
     starts = torch.empty_like(sel)
     lib = _cuda.lib()
     _cuda.launches['selector_chase'] += 1
     _cuda.check(lib.cz_selector_chase(F.data_ptr(), sel.data_ptr(),
                                       starts.data_ptr(), G, cap,
-                                      sel.shape[0], sub,
+                                      sel.shape[0], sub, None,
                                       _cuda.stream_handle(F.device)),
                 'selector_chase')
     return starts

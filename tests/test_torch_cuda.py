@@ -62,7 +62,7 @@ def test_alloc_kernel_matches_plain(cuda):
         arrs[i, :len(t)] = torch.tensor(t)
     ms = torch.tensor([len(t) for t in tables], dtype=torch.int32)
     got = de.alloc_lengths(arrs.to(cuda), ms.to(cuda))
-    assert torch.equal(got.cpu(), de.alloc_lengths_plain(arrs, ms))
+    assert torch.equal(got.cpu(), de.alloc_lengths_plain(arrs, ms)[0])
 
 
 def test_wrappers_reject_bad_input(cuda):
@@ -73,6 +73,19 @@ def test_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         de.alloc_lengths(torch.zeros(2, 10, dtype=torch.int32, device=cuda),
                          torch.ones(2, dtype=torch.int32, device=cuda))
+    freqs = torch.ones(2, de.N, dtype=torch.int32, device=cuda)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        de.code_lengths_batch(freqs[:, :10], 5, err)
+    with pytest.raises(ValueError):
+        de.code_lengths_batch(freqs, de.N + 1, err)
+    with pytest.raises(ValueError):
+        de.code_lengths_batch(freqs.long(), 5, err)
+    with pytest.raises(ValueError):
+        de.code_lengths_batch(freqs, 5, err.cpu())
+    with pytest.raises(ValueError):
+        de.code_lengths_batch(freqs, 5, torch.zeros(2, dtype=torch.int32,
+                                                    device=cuda))
 
 
 def test_golden_sample5_on_card(cuda):
@@ -81,7 +94,9 @@ def test_golden_sample5_on_card(cuda):
     before = dict(_cuda.launches)
     assert cz.compress_file_device(bz2.decompress(gold), level=9) == gold
     assert _cuda.launches['mtf_scan'] - before['mtf_scan'] == 3
-    assert _cuda.launches['alloc_lengths'] - before['alloc_lengths'] >= 3
+    # the table builds are one fused launch each, up to 9 a block
+    assert _cuda.launches['code_lengths'] - before['code_lengths'] >= 3
+    assert _cuda.launches['alloc_lengths'] == before['alloc_lengths']
 
 
 @pytest.mark.parametrize('G,cap,blo,bhi', [
@@ -124,6 +139,9 @@ def test_decode_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         dh.selector_chase(a.int(), torch.zeros(4, dtype=torch.int64,
                                                device=cuda), 5)
+    with pytest.raises(ValueError):
+        dh.selector_chase(a.int(), torch.zeros(
+            dh.CHASE_MAX_SEL + 1, dtype=torch.int32, device=cuda), 1)
 
 
 def test_decode_golden_sample5_on_card(cuda):
@@ -194,3 +212,159 @@ def test_chase_kernel_bounded_equals_full(cuda, sub):
     full = dh.selector_chase(F, sel, sub)
     assert torch.equal(dh.selector_chase(F, sel[:n_sel], sub),
                        full[:n_sel])
+
+
+def _chase_case(case):
+    """(F (G, cap) int32, sel int32, sub) for the edge cases of a chase
+    that stages F's windows ahead of the chain (the CPU tests hold the
+    plain version against the JAX package on the same kinds of input)."""
+    rng = np.random.default_rng(len(case))
+    G, cap, n, sub = 6, 1 << 15, 200, 1
+    lo, hi = 50, 1001            # one chunk moves 50..1000 bits
+    if case == 'clamped_tail':   # the last chunks sit at cap - 1
+        cap, n = 1 << 14, 120
+    elif case == 'longest_steps':  # every code 20 bits: 1000 a chunk
+        lo, hi, n = 1000, 1001, 30
+    elif case == 'sub5':
+        sub, lo, hi = 5, 10, 201
+    elif case == 'cap_below_window':
+        cap, n = 1000, 30
+    elif case == 'cap_ragged':   # not a multiple of a window, nor of 4
+        cap, n = 5001, 80
+    elif case == 'far_jumps':    # steps past the whole ring of windows
+        lo, hi, cap = 50, 12000, 1 << 20
+    elif case == 'backward':     # not monotone: read from global memory
+        lo, hi = -3000, 1001
+    pos = np.arange(cap)[None, :]
+    F = np.clip(pos + rng.integers(lo, hi, (G, cap)), 0, cap - 1)
+    sel = rng.integers(0, G, n)
+    if case == 'alternating':
+        sel = np.arange(n) % G
+    elif case == 'selector_past_G':
+        sel[::7] = G
+        sel[3::11] = G + 40
+    elif case == 'two_groups':
+        G = 2
+        F = F[:2]
+        sel = sel % 2
+    return F.astype(np.int32), sel.astype(np.int32), sub
+
+
+@pytest.mark.parametrize('case', [
+    'clamped_tail', 'longest_steps', 'alternating', 'selector_past_G',
+    'cap_below_window', 'cap_ragged', 'sub5', 'far_jumps', 'backward',
+    'two_groups'])
+def test_staged_chase_edge_cases(cuda, case):
+    F, sel, sub = _chase_case(case)
+    F, sel = torch.from_numpy(F).to(cuda), torch.from_numpy(sel).to(cuda)
+    before = _cuda.launches['selector_chase']
+    got = dh.selector_chase(F, sel, sub)
+    assert _cuda.launches['selector_chase'] == before + 1
+    assert torch.equal(got.cpu(), dh.selector_chase_plain(F, sel, sub).cpu())
+
+
+def test_staged_chase_reads_shared_memory(cuda):
+    """On sample5's first block every step of the chain reads a staged
+    window: no load goes to global memory, and nothing past the ring's
+    reach beyond the last start is copied."""
+    walk = _sample5_first_walk(cuda)
+    payload, bit0, nbits_cap, s_cap, limits, _, _, mins, sel, n_sel, _ = \
+        walk
+    _, _, nxt = dh._next_maps(payload, bit0, nbits_cap, limits, mins)
+    F = dh._power_k(nxt, dh.POWER_K_DEFAULT)
+    sel = sel[:n_sel].to(torch.int32).contiguous()
+    starts = torch.empty_like(sel)
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    _cuda.check(_cuda.lib().cz_selector_chase(
+        F.data_ptr(), sel.data_ptr(), starts.data_ptr(), F.shape[0],
+        F.shape[1], n_sel, 1, stats.data_ptr(),
+        _cuda.stream_handle(cuda)), 'selector_chase')
+    assert torch.equal(starts, dh.selector_chase_plain(F, sel, 1))
+    staged, global_loads, window, stages = stats.tolist()
+    assert global_loads == 0
+    reach = int(starts[-1]) + window * stages
+    assert 0 < staged <= F.shape[0] * reach * 4
+
+
+def _fused_rows(m, B):
+    rng = np.random.default_rng(10 * m + B)
+    fib = [1, 1]
+    while len(fib) < 29:
+        fib.append(fib[-1] + fib[-2])
+    rows = np.zeros((B, de.N), dtype=np.int32)
+    rows[0, :m] = rng.permutation(np.resize(fib[:min(m, 29)], m))
+    top = 900001 // max(m, 1)
+    for i in range(1, B):
+        rows[i, :m] = (rng.integers(0, top, m) if i % 2 else
+                       np.minimum(rng.zipf(1.3, m), top))
+    return torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize('B', [1, 2, 6])
+@pytest.mark.parametrize('m', [0, 3, 4, 258, 260])
+def test_code_lengths_kernel_matches_plain(cuda, m, B):
+    freqs = _fused_rows(m, B)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = _cuda.launches['code_lengths']
+    got = de.code_lengths_batch(freqs.to(cuda), m, err)
+    assert _cuda.launches['code_lengths'] == before + 1
+    want, flags = de.code_lengths_plain(freqs, m)
+    assert torch.equal(got.cpu(), want)
+    assert int(err) == int(flags.max()) == 0
+
+
+def test_code_lengths_kernel_flags_bad_keys(cuda):
+    freqs = _fused_rows(258, 3)
+    freqs[1, 7] = 1 << 22
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = de.code_lengths_batch(freqs.to(cuda), 258, err)
+    assert int(err) == 1
+    assert torch.equal(got[0].cpu(), de.code_lengths_plain(freqs, 258)[0][0])
+
+
+def test_code_lengths_equals_alloc_on_encode_tables(cuda):
+    """Every table build of a sample5x4 -9 encode, through the fused
+    kernel and through torch.sort + cz_alloc_lengths + scatter."""
+    with open(os.path.join(GOLDEN, 'sample5x4_bzip2_9.bz2'), 'rb') as f:
+        gold = f.read()
+    seen = []
+    orig = de.code_lengths_batch
+
+    def recorder(freqs, m, err):
+        seen.append((freqs.clone(), m))
+        return orig(freqs, m, err)
+
+    de.code_lengths_batch = recorder
+    try:
+        assert cz.compress_file_device(bz2.decompress(gold), level=9) == gold
+    finally:
+        de.code_lengths_batch = orig
+    assert len(seen) >= 10 * 5
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for freqs, m in seen:
+        arrs, sym_of_slot, valid = de._sym_sorted(freqs, m)
+        ms = torch.full((freqs.shape[0],), m, dtype=torch.int32,
+                        device=cuda)
+        old = de._unsort(de.alloc_lengths(arrs.to(torch.int32).contiguous(),
+                                          ms), sym_of_slot, valid)
+        assert torch.equal(de.code_lengths_batch(freqs, m, err), old)
+    assert int(err) == 0
+
+
+def test_deferred_flag_raises_on_card(cuda):
+    """A frequency the table build cannot take sets the block's flag in
+    the kernel; optimize_groups_dev raises when it reads the flag with
+    the Lloyd loop's cost."""
+    rng = np.random.default_rng(3)
+    m, n_syms = 100, 3000
+    buf = np.minimum(rng.zipf(1.5, n_syms + 13) - 1, m - 2).astype(np.int16)
+    buf[n_syms - 1:] = m - 1
+    freq = np.bincount(buf[:n_syms], minlength=de.N).astype(np.int32)
+    syms = torch.from_numpy(buf).to(cuda)
+    n_chunks = -(-buf.shape[0] // 50)
+    de.optimize_groups_dev(syms, n_syms, n_chunks,
+                           torch.from_numpy(freq).to(cuda), m)
+    freq[5] = 1 << 22
+    with pytest.raises(RuntimeError, match='loop bound'):
+        de.optimize_groups_dev(syms, n_syms, n_chunks,
+                               torch.from_numpy(freq).to(cuda), m)

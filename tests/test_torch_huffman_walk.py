@@ -4,10 +4,13 @@ and host header parse (host/bzip2_parse.py) against the JAX package's
 first block of streams that ``compressjs_tpu.codecs.bzip2`` writes from
 seeded data.  Integer code: equality is exact."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from compressjs_tpu.codecs import bzip2 as jbz
@@ -220,3 +223,89 @@ def test_huffman_walk_padded_caps():
                                              nbits_cap, s_cap)
     assert pc == jc and pe == je
     np.testing.assert_array_equal(ps[:pc], js[:jc])
+
+
+def _jax_package_chase(F, sel, sub):
+    """The chunk starts that the JAX package's `huffman_walk_dev` chases
+    over a given F: the walk runs eagerly with `_power_k` returning F, and
+    its second `lax.scan` (the 50-step walk, which takes the starts as its
+    carry) is recorded and skipped."""
+    G, cap = F.shape
+    n = sel.shape[0]
+    real = jax.lax
+    seen = []
+
+    def scan(f, init, xs=None, length=None, **kw):
+        if seen:                       # the walk: record its starts
+            seen.append(np.asarray(init))
+            z = jnp.zeros((jdh.GROUP_SIZE, n), jnp.int32)
+            return init, (z, z)
+        seen.append(None)              # the chase itself runs
+        return real.scan(f, init, xs, length=length, **kw)
+
+    lax = types.SimpleNamespace(**{k: getattr(real, k) for k in dir(real)
+                                   if not k.startswith('__')})
+    lax.scan = scan
+    orig = jdh._power_k, jdh.lax
+    jdh._power_k = lambda nxt, nbits_cap, k: jnp.asarray(F)
+    jdh.lax = lax
+    try:
+        with jax.disable_jit():
+            jdh.huffman_walk_dev.__wrapped__(
+                jnp.zeros(cap // 8 + 16, jnp.uint8), 0, cap, n, G,
+                jnp.zeros((G, jdh.MAX_CODE_BITS + 2), jnp.int32),
+                jnp.zeros((G, jdh.MAX_CODE_BITS + 1), jnp.int32),
+                jnp.zeros((G, 258), jnp.int32), jnp.ones(G, jnp.int32),
+                jnp.asarray(sel), n, 1, jdh.GROUP_SIZE // sub)
+    finally:
+        jdh._power_k, jdh.lax = orig
+    return seen[1]
+
+
+def _chase_case(case):
+    """(F (G, cap) int32, sel int32, sub) for the edge cases of a chase
+    that stages F's windows ahead of the chain."""
+    rng = np.random.default_rng(len(case))
+    G, cap, n, sub = 6, 1 << 15, 200, 1
+    lo, hi = 50, 1001            # one chunk moves 50..1000 bits
+    if case == 'clamped_tail':   # the last chunks sit at cap - 1
+        cap, n = 1 << 14, 120
+    elif case == 'longest_steps':  # every code 20 bits: 1000 a chunk
+        lo, hi, n = 1000, 1001, 30
+    elif case == 'sub5':
+        sub, lo, hi = 5, 10, 201
+    elif case == 'cap_below_window':
+        cap, n = 1000, 30
+    elif case == 'cap_ragged':   # not a multiple of a window, nor of 4
+        cap, n = 5001, 80
+    pos = np.arange(cap)[None, :]
+    F = np.minimum(pos + rng.integers(lo, hi, (G, cap)), cap - 1)
+    sel = rng.integers(0, G, n)
+    if case == 'alternating':
+        sel = np.arange(n) % G
+    elif case == 'selector_past_G':
+        sel[::7] = G
+        sel[3::11] = G + 40
+    return F.astype(np.int32), sel.astype(np.int32), sub
+
+
+CHASE_CASES = ['clamped_tail', 'longest_steps', 'alternating',
+               'selector_past_G', 'cap_below_window', 'cap_ragged', 'sub5']
+
+
+@pytest.mark.parametrize('case', CHASE_CASES)
+def test_selector_chase_plain_edge_cases_match_jax(case):
+    """The chase's plain version (the card kernel's reference) equals the
+    JAX package's chase on the inputs where a staged chase could go wrong:
+    a chain stuck at cap - 1, the longest steps, groups alternating over
+    all six rows, selectors past G (clamped into F), caps below a window
+    or not a multiple of it, and five steps per selector."""
+    F, sel, sub = _chase_case(case)
+    want = _jax_package_chase(F, sel, sub)
+    got = dh.selector_chase_plain(torch.from_numpy(F), torch.from_numpy(sel),
+                                  sub).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case != 'selector_past_G':   # the step-by-step loop does not clamp
+        np.testing.assert_array_equal(got, _chase_reference(F, sel, sub))
+    if case == 'clamped_tail':
+        assert (got[-5:] == F.shape[1] - 1).all()

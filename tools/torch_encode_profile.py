@@ -53,6 +53,8 @@ def stage_targets():
         (bk, 'mtf_encode', 'device: MTF (start tables + kernel)'),
         (bk, 'rle2_encode', 'device: RLE2'),
         (de, 'optimize_groups_dev', 'device: group optimisation'),
+        (de, 'code_lengths_batch', 'device: table builds (inside group '
+         'optimisation)'),
         (de, 'payload_pack_words_dev', 'device: payload pack'),
         (pl, '_device_block_header', 'host: block header bits'),
     ]
@@ -127,9 +129,13 @@ def main():
             raise AssertionError('encode differs from the golden')
 
     encode()  # warm-up: kernel build, allocator caches
+    from compressjs_tpu_torch.ops import _cuda
+    for name in _cuda.launches:
+        _cuda.launches[name] = 0
     t0 = time.perf_counter()
     encode()
     wall = time.perf_counter() - t0
+    port_launches = dict(_cuda.launches)
 
     with timed_stages(stage_targets()) as (totals, counts):
         t0 = time.perf_counter()
@@ -144,10 +150,12 @@ def main():
         prof_wall = time.perf_counter() - t0
     events = prof.events()
     by_kernel = collections.defaultdict(float)
+    launches = collections.Counter()
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name[:80]] += (e.time_range.end -
                                        e.time_range.start) / 1e3
+            launches[e.name[:80]] += 1
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     busy = busy_ms(events)
 
@@ -157,15 +165,18 @@ def main():
         'input_bytes': len(data),
         'encode_wall_s': wall,
         'encode_mb_s': len(data) / wall / 1e6,
+        'port_kernel_launches': port_launches,
         'staged_wall_s': staged_wall,
         'stages_s': {k: totals[k] for k in sorted(totals,
                                                   key=lambda k: -totals[k])},
         'stage_calls': dict(counts),
         'profiled_wall_s': prof_wall,
+        'device_kernel_launches': sum(launches.values()),
         'device_busy_ms': busy if by_kernel else 'not measured',
         'device_idle_share': (1 - busy / (prof_wall * 1e3) if by_kernel
                               else 'not measured'),
         'device_ms_by_kernel': dict(top),
+        'device_launches_by_kernel': {k: launches[k] for k, _ in top},
     }
     text = json.dumps(result, indent=1)
     print(text)
