@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, holds each
-kernel equal to its plain version on the card at main-path shapes (MTF
-scan, the Huffman allocator on sorted tables and the fused table build,
-windowed compose, the staged selector chase at k = 10 and at the
+Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, prints the
+MTF kernels' registers and stack frames, holds each kernel equal to its
+plain version on the card at main-path shapes (the MTF encode's three
+launches and its start lists on sample5's first block and on uniform
+symbols, the Huffman allocator on sorted tables and the fused table
+build, windowed compose, the staged selector chase at k = 10 and at the
 default k on sample5's first block and on every block of the sample5x4
-decode, MTF undo), times the latency probes that floor the chase and
+decode, the MTF undo's three launches and its start lists on sample5's
+first block and on zipf indices), times each MTF launch at 132, 528 and
+all chunks and each whole MTF stage with its launches a call, times the
+latency probes that floor the chase and
 the allocator (one thread's chain from L2 and from shared memory, one
 SM's staging rate), counts the group optimisation's launches and
 syncing reads per block with the fused build and with the build it
@@ -41,10 +46,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden')
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor
-# vector rate, used for the kernels' 32-bit integer operations
+# H100 SXM peaks: HBM bandwidth (NVIDIA data sheet), and the rate of
+# 32-bit integer operations, which is what every kernel here does: 64
+# INT32 lanes per SM x 132 SMs x 1.98 GHz (the data sheet's 67e12 is the
+# FP32 rate, 128 lanes per SM)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def phase(name):
@@ -117,40 +124,127 @@ def first_block_bwt(data, dev):
     return torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
 
 
-def check_mtf(dense, width):
-    """Kernel vs plain on one input; returns (max_abs_err, kernel ms,
-    wrapper ms, plain ms, bound ms, bound_by)."""
+def ptxas_frames(log, names):
+    """{kernel name: (registers, stack frame bytes)} from nvcc's -Xptxas -v
+    lines, for each entry function whose mangled name holds one of
+    `names`."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = next((nm for nm in names if nm in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes stack frame', line)
+        if m:
+            out.setdefault(cur, [None, None])[1] = int(m.group(1))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out.setdefault(cur, [None, None])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def kernels_launched(fn):
+    """Device kernels one call of fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith('Memcpy')
+               and not e.name.startswith('Memset'))
+
+
+def stage(fn, counter):
+    """The whole MTF stage: device ms per call (CUDA events over 20
+    calls back to back), the package's launch count for one call and the
+    device kernels torch.profiler sees in one call."""
     from compressjs_tpu_torch.ops import _cuda
-    from compressjs_tpu_torch.ops.block_kernels import (
-        _chunk_start_positions, _pad_chunks, mtf_scan, mtf_scan_plain)
+    ms = cuda_ms(fn, 20)
+    before = _cuda.launches[counter]
+    fn()
+    counted = _cuda.launches[counter] - before
+    return {'stage_ms': ms, 'launches_per_call': counted,
+            'kernels_per_call': kernels_launched(fn)}
+
+
+def occupancy(launch, n_chunks, counts=(132, 528)):
+    """ms of launch(chunks) at a few chunk counts (the warps per SM grow
+    with them) and at all n_chunks."""
+    return {c: cuda_ms(lambda: launch(c), 20)
+            for c in list(counts) + [n_chunks]}
+
+
+def check_mtf(dense):
+    """The three encode launches against the plain encode and the plain
+    start lists on one input; returns a dict of errors and times."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import block_kernels as bk
     n = dense.shape[0]
-    starts = _chunk_start_positions(_pad_chunks(dense, n), width)
-    got = mtf_scan(dense, starts)
-    want = mtf_scan_plain(dense, starts)
+    got = bk.mtf_encode(dense, n)
+    want = bk.mtf_encode_plain(dense, n)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
-    if err:
-        raise AssertionError('MTF kernel differs from its plain version '
-                             '(width %d): max abs err %d' % (width, err))
     lib = _cuda.lib()
-    out = torch.empty_like(dense)
     stream = _cuda.stream_handle(dense.device)
+    n_chunks = -(-n // bk.CHUNK_LEN)
+    n_tiles = -(-n_chunks // bk.TILE_CHUNKS)
+    agg = torch.empty((n_tiles, 256), dtype=torch.int32, device=dense.device)
+    pre = torch.empty_like(agg)
+    out = torch.empty_like(dense)
 
-    def launch():  # the kernel alone, outside the wrapper
-        _cuda.check(lib.cz_mtf_scan(dense.data_ptr(), starts.data_ptr(),
-                                    out.data_ptr(), n, starts.shape[0],
-                                    width, stream), 'mtf_scan')
+    # the kernels alone, outside the wrapper
+    def tiles(c=n_chunks):
+        _cuda.check(lib.cz_mtf_encode_tiles(
+            dense.data_ptr(), agg.data_ptr(), min(n, c * bk.CHUNK_LEN), c,
+            stream), 'mtf_scan')
 
-    ms = cuda_ms(launch, 20)
-    if not torch.equal(out, got):
-        raise AssertionError('timed MTF launches differ')
-    wrapper = cuda_ms(lambda: mtf_scan(dense, starts), 20)
-    plain = cuda_ms(lambda: mtf_scan_plain(dense, starts), 2)
-    # what these inputs need: per symbol a table lookup and a clear, plus
-    # one bump for each of the j = code entries that sit in front of it
-    b = bound(4 * n * 2 + 4 * starts.numel(),
-              2 * n + int(want.long().sum()))
-    return err, ms, wrapper, plain, b[0], b[1]
+    def prefix(c=n_chunks):
+        _cuda.check(lib.cz_mtf_encode_prefix(
+            agg.data_ptr(), pre.data_ptr(), -(-c // bk.TILE_CHUNKS), stream),
+            'mtf_scan')
+
+    def step(c=n_chunks):
+        _cuda.check(lib.cz_mtf_encode(
+            dense.data_ptr(), pre.data_ptr(), out.data_ptr(),
+            min(n, c * bk.CHUNK_LEN), c, stream), 'mtf_scan')
+
+    def all_three():
+        tiles()
+        prefix()
+        step()
+
+    ms = cuda_ms(all_three, 20)
+    # the start lists: each tile's last occurrences and their prefix
+    # against the plain exclusive scan (padding counted only below n)
+    last = np.full((n_tiles * bk.TILE_CHUNKS, 256), -1, dtype=np.int64)
+    np.maximum.at(last, (np.arange(n) // bk.CHUNK_LEN,
+                         dense.cpu().numpy()), np.arange(n))
+    lists_err = max(
+        int(np.abs(agg.cpu().numpy() - last.reshape(
+            n_tiles, bk.TILE_CHUNKS, 256).max(1)).max()),
+        int((pre.cpu().long() - bk._last_before(torch.from_numpy(
+            last[:n_chunks]))[::bk.TILE_CHUNKS]).abs().max()))
+    if err or lists_err or not torch.equal(out, got):
+        raise AssertionError('MTF encode kernels differ from their plain '
+                             'versions: max abs err %d, start lists %d'
+                             % (err, lists_err))
+    res = {'err': err, 'lists_err': lists_err, 'ms': ms,
+           'tiles_ms': cuda_ms(tiles, 20), 'prefix_ms': cuda_ms(prefix, 20),
+           'step_ms': cuda_ms(step, 20),
+           'occupancy_ms': occupancy(step, n_chunks),
+           'plain_ms': cuda_ms(lambda: bk.mtf_encode_plain(dense, n), 2)}
+    res.update(stage(lambda: bk.mtf_encode(dense, n), 'mtf_scan'))
+    # what these inputs need: symbols in and codes out once; per symbol a
+    # lookup and a front write, plus one move per entry in front of it
+    res['bound_ms'], res['bound_by'] = bound(
+        4 * n * 2, 2 * n + int(want.long().sum()))
+    return res
 
 
 def adversarial_tables():
@@ -486,56 +580,71 @@ def first_block_mtf_indices(walk, dbuf_size):
 
 
 def check_mtf_undo(idx, n):
-    """Kernel vs plain on one input; returns (max_abs_err, kernel ms of
-    both launches, of the permutation launch, of the decode launch,
-    wrapper ms, plain ms, bound ms, bound_by)."""
+    """The three MTF-undo launches against the plain decode and the plain
+    start lists on one input; returns a dict of errors and times."""
     from compressjs_tpu_torch.ops import _cuda
     from compressjs_tpu_torch.ops import block_decode as bd
     got = bd.mtf_decode(idx, n)
     want = bd.mtf_decode_plain(idx, n)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
-    if err:
-        raise AssertionError('MTF-undo kernel differs from its plain '
-                             'version (n %d): max abs err %d' % (n, err))
     lib = _cuda.lib()
     stream = _cuda.stream_handle(idx.device)
     n_chunks = -(-n // bd.CHUNK_LEN)
+    n_tiles = -(-n_chunks // bd.TILE_CHUNKS)
     perm = torch.empty((n_chunks, bd.WIDTH), dtype=torch.uint8,
                        device=idx.device)
+    agg = torch.empty((n_tiles, bd.WIDTH), dtype=torch.uint8,
+                      device=idx.device)
+    lists = torch.empty_like(agg)
     out = torch.empty(n, dtype=torch.int32, device=idx.device)
 
-    def launch_perm():  # the kernels alone, outside the wrapper
-        _cuda.check(lib.cz_mtf_undo_perm(idx.data_ptr(), perm.data_ptr(),
-                                         n, n_chunks, stream), 'mtf_undo')
+    # the kernels alone, outside the wrapper
+    def launch_perm(c=n_chunks):
+        _cuda.check(lib.cz_mtf_undo_perm(
+            idx.data_ptr(), perm.data_ptr(), agg.data_ptr(),
+            min(n, c * bd.CHUNK_LEN), c, stream), 'mtf_undo')
 
-    launch_perm()
-    lists = bd._start_lists(perm)
-
-    def launch_decode():
-        _cuda.check(lib.cz_mtf_undo_decode(
-            idx.data_ptr(), lists.data_ptr(), out.data_ptr(), n, n_chunks,
+    def launch_prefix(c=n_chunks):
+        _cuda.check(lib.cz_mtf_undo_prefix(
+            agg.data_ptr(), lists.data_ptr(), -(-c // bd.TILE_CHUNKS),
             stream), 'mtf_undo')
 
-    def launch_both():
+    def launch_decode(c=n_chunks):
+        _cuda.check(lib.cz_mtf_undo_decode(
+            idx.data_ptr(), perm.data_ptr(), lists.data_ptr(),
+            out.data_ptr(), min(n, c * bd.CHUNK_LEN), c, stream),
+            'mtf_undo')
+
+    def all_three():
         launch_perm()
+        launch_prefix()
         launch_decode()
 
-    ms = cuda_ms(launch_both, 20)
-    if not torch.equal(out, got):
-        raise AssertionError('timed MTF-undo launches differ')
-    perm_ms = cuda_ms(launch_perm, 20)
-    decode_ms = cuda_ms(launch_decode, 20)
-    wrapper = cuda_ms(lambda: bd.mtf_decode(idx, n), 20)
-    plain = cuda_ms(lambda: bd.mtf_decode_plain(idx, n), 1)
+    ms = cuda_ms(all_three, 20)
+    _, pperm = bd._chunk_perms(idx, n)
+    lists_err = max(
+        int((perm.long() - pperm.long()).abs().max()),
+        int((lists.long() - bd._start_lists(pperm)[::bd.TILE_CHUNKS].long())
+            .abs().max()))
+    if err or lists_err or not torch.equal(out, got):
+        raise AssertionError('MTF-undo kernels differ from their plain '
+                             'versions (n %d): max abs err %d, start lists %d'
+                             % (n, err, lists_err))
+    res = {'err': err, 'lists_err': lists_err, 'ms': ms,
+           'perm_ms': cuda_ms(launch_perm, 20),
+           'prefix_ms': cuda_ms(launch_prefix, 20),
+           'decode_ms': cuda_ms(launch_decode, 20),
+           'occupancy_perm_ms': occupancy(launch_perm, n_chunks),
+           'occupancy_ms': occupancy(launch_decode, n_chunks),
+           'plain_ms': cuda_ms(lambda: bd.mtf_decode_plain(idx, n), 1)}
+    res.update(stage(lambda: bd.mtf_decode(idx, n), 'mtf_undo'))
     # the function's traffic: int32 indices read once, int32 values
-    # written once (the permutations and start lists between the two
-    # launches belong to this split, not to the function); per index and
-    # launch a lookup and a front write, and one move per position in
-    # front of it
+    # written once; per index a lookup and a front write, and one move per
+    # position in front of it
     front = int(idx[:n].long().clamp(0, bd.WIDTH).sum())
-    b = bound(8 * n, 2 * (2 * n + front))
-    return err, ms, perm_ms, decode_ms, wrapper, plain, b[0], b[1]
+    res['bound_ms'], res['bound_by'] = bound(8 * n, 2 * n + front)
+    return res
 
 
 def check_compose(calls, dev):
@@ -787,19 +896,29 @@ def main():
     for line in _cuda.build_info['log'].splitlines():
         if 'ptxas' in line or 'stack frame' in line:
             print('  ' + line.strip())
+    frames = ptxas_frames(_cuda.build_info['log'], (
+        'mtf_tiles_kernel', 'mtf_prefix_kernel', 'mtf_encode_kernel',
+        'mtf_undo_perm_kernel', 'mtf_undo_prefix_kernel',
+        'mtf_undo_decode_kernel'))
+    print('  MTF kernels (registers, stack frame bytes): %s' % frames)
 
     s5_comp, s5 = golden('sample5_bzip2_9.bz2')
     s5x4_comp, s5x4 = golden('sample5x4_bzip2_9.bz2')
 
-    phase('MTF kernel vs plain version')
+    phase('MTF encode kernels vs plain versions')
     rng = np.random.default_rng(1234)
-    mtf_real = check_mtf(first_block_bwt(s5, dev), 256)
+    mtf_real = check_mtf(first_block_bwt(s5, dev))
     mtf_rand = check_mtf(torch.from_numpy(
-        rng.integers(0, 256, 899981).astype(np.int32)).to(dev), 256)
-    print('  sample5 block: kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, '
-          'bound %.5f ms (%s)' % mtf_real[1:])
-    print('  random block:  kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, '
-          'bound %.5f ms (%s)' % mtf_rand[1:])
+        rng.integers(0, 256, 899981).astype(np.int32)).to(dev))
+    for name, r in (('sample5 block', mtf_real), ('uniform random', mtf_rand)):
+        print('  %s: three launches %.4f ms (tiles %.4f, prefix %.4f, '
+              'encode %.4f); stage %.4f ms, %d launches a call (%d device '
+              'kernels); plain %.3f ms; bound %.5f ms (%s); encode kernel '
+              'by chunks %s' % (name, r['ms'], r['tiles_ms'], r['prefix_ms'],
+                                r['step_ms'], r['stage_ms'],
+                                r['launches_per_call'], r['kernels_per_call'],
+                                r['plain_ms'], r['bound_ms'], r['bound_by'],
+                                r['occupancy_ms']))
 
     phase('allocator kernels vs plain versions')
     builds = record_builds(
@@ -891,18 +1010,27 @@ def main():
              dec_chase['stream_floor_ms'], dec_chase['staged_bytes'],
              dec_chase['smem_floor_ms'], dec_chase['steps']))
 
-    phase('MTF-undo kernel vs plain version')
+    phase('MTF-undo kernels vs plain versions')
     idx, total = first_block_mtf_indices(walk, dbuf_size)
     undo_real = check_mtf_undo(idx, dbuf_size)
     rand = np.minimum(rng.zipf(1.3, 899981) - 1, 255).astype(np.int32)
     rand[3::97] = 256
     undo_rand = check_mtf_undo(torch.from_numpy(rand).to(dev), 899977)
-    print('  sample5 block (%d of %d indices in use): kernel %.4f ms '
-          '(permutations %.4f, decode %.4f), wrapper %.4f ms, plain %.3f '
-          'ms, bound %.5f ms (%s)' % ((total, dbuf_size) + undo_real[1:]))
-    print('  random, ragged, planted 256s: kernel %.4f ms (permutations '
-          '%.4f, decode %.4f), wrapper %.4f ms, plain %.3f ms, bound %.5f '
-          'ms (%s)' % undo_rand[1:])
+    for name, r in (('sample5 block (%d of %d indices in use)'
+                     % (total, dbuf_size), undo_real),
+                    ('zipf, ragged, planted 256s', undo_rand)):
+        print('  %s: three launches %.4f ms (permutations %.4f, prefix '
+              '%.4f, decode %.4f); stage %.4f ms, %d launches a call (%d '
+              'device kernels); plain %.3f ms; bound %.5f ms (%s); by '
+              'chunks: permutations %s, decode %s'
+              % (name, r['ms'], r['perm_ms'], r['prefix_ms'], r['decode_ms'],
+                 r['stage_ms'], r['launches_per_call'], r['kernels_per_call'],
+                 r['plain_ms'], r['bound_ms'], r['bound_by'],
+                 r['occupancy_perm_ms'], r['occupancy_ms']))
+    for r in (mtf_real, mtf_rand, undo_real, undo_rand):
+        if r['launches_per_call'] > 3 or r['kernels_per_call'] > 3:
+            raise AssertionError('an MTF stage launched more than 3 '
+                                 'kernels: %s' % r)
     del walk, idx
 
     phase('main path: sample5x4 -9 encode')
@@ -918,7 +1046,7 @@ def main():
         raise AssertionError('sample5x4 encode differs from the golden')
     if bz2.decompress(out) != s5x4:
         raise AssertionError('sample5x4 encode does not round-trip')
-    if launches['mtf_scan'] != n_blocks or \
+    if launches['mtf_scan'] != 3 * n_blocks or \
             launches['code_lengths'] < n_blocks:
         raise AssertionError('main path skipped a kernel: %s' % launches)
 
@@ -936,7 +1064,7 @@ def main():
         raise AssertionError('sample5x4 decode differs from bz2')
     if dec_launches['compose_windowed'] != n_compose * n_dec \
             or dec_launches['selector_chase'] != n_dec \
-            or dec_launches['mtf_undo'] != 2 * n_dec:
+            or dec_launches['mtf_undo'] != 3 * n_dec:
         raise AssertionError('decode skipped a kernel: %s' % dec_launches)
 
     phase('more inputs')
@@ -987,7 +1115,7 @@ def main():
           % (len(c1), len(out), false_hit[0], c1_launches))
     if out != data:
         raise AssertionError('stream with a false end magic decodes wrong')
-    if c1_launches['selector_chase'] < 3 or c1_launches['mtf_undo'] < 6:
+    if c1_launches['selector_chase'] < 3 or c1_launches['mtf_undo'] < 9:
         raise AssertionError('false-magic decode skipped a kernel: %s'
                              % c1_launches)
 
@@ -1027,12 +1155,21 @@ def main():
     kernels = [
         {'name': 'mtf_scan', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/mtf_scan.cu',
-         'replaces': 'compressjs_tpu/ops/pallas_kernels.py:51',
+         'replaces': 'compressjs_tpu/ops/pallas_kernels.py:51 (with the '
+                     'start tables of jax_kernels.py:365)',
          'launches': launches['mtf_scan'],
-         'max_abs_err': max(mtf_real[0], mtf_rand[0]),
-         'ms': mtf_real[1], 'plain_ms': mtf_real[3],
-         'bound_ms': mtf_real[4], 'bound_by': mtf_real[5],
-         'library_ms': None},
+         'max_abs_err': max(mtf_real['err'], mtf_rand['err'],
+                            mtf_real['lists_err'], mtf_rand['lists_err']),
+         # the three launches of one stage, back to back
+         'ms': mtf_real['ms'], 'plain_ms': mtf_real['plain_ms'],
+         'bound_ms': mtf_real['bound_ms'], 'bound_by': mtf_real['bound_by'],
+         'library_ms': None, 'stage_ms': mtf_real['stage_ms'],
+         'launches_per_call': mtf_real['launches_per_call'],
+         'tiles_ms': mtf_real['tiles_ms'], 'prefix_ms': mtf_real['prefix_ms'],
+         'encode_ms': mtf_real['step_ms'],
+         'encode_ms_by_chunks': mtf_real['occupancy_ms'],
+         'uniform_ms': mtf_rand['ms'], 'uniform_encode_ms': mtf_rand['step_ms'],
+         'ptxas': {k: v for k, v in frames.items() if 'undo' not in k}},
         {'name': 'code_lengths', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
          'replaces': 'compressjs_tpu/ops/device_entropy.py:238 (with the '
@@ -1113,12 +1250,19 @@ def main():
          'replaces': 'compressjs_tpu/ops/jax_kernels.py:617 (lax.scan, '
                      'no TPU kernel)',
          'launches': dec_launches['mtf_undo'],
-         'max_abs_err': max(undo_real[0], undo_rand[0]),
-         # both launches of one call (permutations, then decode)
-         'ms': undo_real[1], 'plain_ms': undo_real[5],
-         'bound_ms': undo_real[6], 'bound_by': undo_real[7],
-         'library_ms': None, 'perm_ms': undo_real[2],
-         'decode_ms': undo_real[3], 'wrapper_ms': undo_real[4]},
+         'max_abs_err': max(undo_real['err'], undo_rand['err'],
+                            undo_real['lists_err'], undo_rand['lists_err']),
+         # the three launches of one stage, back to back
+         'ms': undo_real['ms'], 'plain_ms': undo_real['plain_ms'],
+         'bound_ms': undo_real['bound_ms'], 'bound_by': undo_real['bound_by'],
+         'library_ms': None, 'stage_ms': undo_real['stage_ms'],
+         'launches_per_call': undo_real['launches_per_call'],
+         'perm_ms': undo_real['perm_ms'], 'prefix_ms': undo_real['prefix_ms'],
+         'decode_ms': undo_real['decode_ms'],
+         'decode_ms_by_chunks': undo_real['occupancy_ms'],
+         'perm_ms_by_chunks': undo_real['occupancy_perm_ms'],
+         'zipf_ms': undo_rand['ms'],
+         'ptxas': {k: v for k, v in frames.items() if 'undo' in k}},
     ]
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)

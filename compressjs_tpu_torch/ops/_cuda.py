@@ -36,8 +36,9 @@ _lib = None
 launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'code_lengths': 0,
             'compose_windowed': 0, 'selector_chase': 0, 'mtf_undo': 0,
             'chase_probe': 0, 'smem_chain_probe': 0, 'stage_probe': 0}
-# what the last build did: wall seconds and nvcc's messages (the
-# -Xptxas -v register and shared-memory lines); empty if reused
+# what the last build did: wall seconds (0 if reused) and nvcc's messages
+# (the -Xptxas -v register and shared-memory lines, kept beside the
+# library for a later reuse)
 build_info = {'seconds': 0.0, 'log': '', 'path': None}
 
 
@@ -60,8 +61,13 @@ def _build(sources=SOURCES, defines=()):
             h.update(f.read())
     out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
     so = os.path.join(out_dir, 'libcompressjs_cuda.so')
+    log_path = so + '.log'
     if os.path.exists(so):
-        build_info.update(seconds=0.0, log='', path=so)
+        log = ''
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        build_info.update(seconds=0.0, log=log, path=so)
         return so
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -86,18 +92,25 @@ def _build(sources=SOURCES, defines=()):
                           text=True)
     if link.returncode:
         raise RuntimeError('nvcc link failed:\n' + link.stdout)
+    log = ''.join(logs) + link.stdout
+    with open(log_path + tag, 'w') as f:
+        f.write(log)
+    os.replace(log_path + tag, log_path)
     os.replace(tmp, so)
     for obj in objs:
         os.remove(obj)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=''.join(logs) + link.stdout, path=so)
+    build_info.update(seconds=time.perf_counter() - t0, log=log, path=so)
     return so
 
 
 def _bind(lib):
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.cz_mtf_scan.argtypes = [p, p, p, i64, i32, i32, p]
-    lib.cz_mtf_scan.restype = i32
+    lib.cz_mtf_encode_tiles.argtypes = [p, p, i64, i32, p]
+    lib.cz_mtf_encode_tiles.restype = i32
+    lib.cz_mtf_encode_prefix.argtypes = [p, p, i32, p]
+    lib.cz_mtf_encode_prefix.restype = i32
+    lib.cz_mtf_encode.argtypes = [p, p, p, i64, i32, p]
+    lib.cz_mtf_encode.restype = i32
     lib.cz_alloc_lengths.argtypes = [p, p, p, p, i32, i32, p]
     lib.cz_alloc_lengths.restype = i32
     lib.cz_code_lengths.argtypes = [p, i32, p, p, i32, i32, p]
@@ -112,9 +125,11 @@ def _bind(lib):
     lib.cz_chase_probe.restype = i32
     lib.cz_smem_chain_probe.argtypes = [p, i32, i32, p, p]
     lib.cz_smem_chain_probe.restype = i32
-    lib.cz_mtf_undo_perm.argtypes = [p, p, i64, i32, p]
+    lib.cz_mtf_undo_perm.argtypes = [p, p, p, i64, i32, p]
     lib.cz_mtf_undo_perm.restype = i32
-    lib.cz_mtf_undo_decode.argtypes = [p, p, p, i64, i32, p]
+    lib.cz_mtf_undo_prefix.argtypes = [p, p, i32, p]
+    lib.cz_mtf_undo_prefix.restype = i32
+    lib.cz_mtf_undo_decode.argtypes = [p, p, p, p, i64, i32, p]
     lib.cz_mtf_undo_decode.restype = i32
     return lib
 

@@ -8,12 +8,12 @@ Where the JAX package used ``lax.associative_scan`` the port uses:
   inclusive sum of per-input output counts, for the RLE expansions;
 * Hillis-Steele doubling (ceil(log2 n) rounds, each composing every
   element with the one 2^r before it) for the composition scans of the
-  MTF chunk lists and of the RLE1 state machine;
+  RLE1 state machine and of the plain version's MTF chunk lists;
 * list ranking by pointer doubling for the inverse BWT's orbit.
 
 All functions take tensors on any device and return tensors on it; none
 of them synchronises with the host unless its docstring says so.  MTF
-undo runs a CUDA kernel (``csrc/mtf_undo.cu``) for a CUDA tensor.
+undo runs three CUDA kernels (``csrc/mtf_undo.cu``) for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -22,8 +22,12 @@ import torch
 
 from . import _cuda
 
-CHUNK_LEN = 512   # MTF chunk length
+# MTF chunk length (fixed in csrc/mtf_undo.cu).  An index outside the list
+# writes a 0 that the composition of chunk maps does not carry, so the
+# decode of such input depends on the chunks: 512, as the JAX package.
+CHUNK_LEN = 512
 WIDTH = 256       # MTF list length
+TILE_CHUNKS = 16  # chunks per tile of the start-list scan (csrc/mtf_undo.cu)
 
 
 def _producers(out_cnt, out_cap):
@@ -108,9 +112,10 @@ def _start_lists(perm):
     return lists
 
 
-def mtf_decode_plain(indices, n):
-    """Plain version of `mtf_decode`: two Python loops of CHUNK_LEN
-    steps, each step moving every chunk's list at once."""
+def _chunk_perms(indices, n):
+    """(chunks, perm): indices[:n] as (n_chunks, CHUNK_LEN) int64 padded
+    with 0, and each chunk's indices applied to the identity list, uint8
+    (n_chunks, WIDTH)."""
     dev = indices.device
     n_chunks = -(-n // CHUNK_LEN)
     d = torch.zeros(n_chunks * CHUNK_LEN, dtype=torch.int64, device=dev)
@@ -121,8 +126,18 @@ def mtf_decode_plain(indices, n):
         n_chunks, WIDTH)
     for t in range(CHUNK_LEN):
         perm, _ = _mtf_at(perm, chunks[:, t], pos)
+    return chunks, perm
+
+
+def mtf_decode_plain(indices, n):
+    """Plain version of `mtf_decode`: two Python loops of CHUNK_LEN
+    steps, each step moving every chunk's list at once, and the
+    composition scan of `_start_lists` between them."""
+    chunks, perm = _chunk_perms(indices, n)
     lists = _start_lists(perm)
-    out = torch.empty((CHUNK_LEN, n_chunks), dtype=torch.uint8, device=dev)
+    pos = torch.arange(WIDTH, device=indices.device)
+    out = torch.empty((CHUNK_LEN, chunks.shape[0]), dtype=torch.uint8,
+                      device=indices.device)
     for t in range(CHUNK_LEN):
         lists, out[t] = _mtf_at(lists, chunks[:, t], pos)
     return out.T.reshape(-1)[:n].to(torch.int32)
@@ -134,10 +149,10 @@ def mtf_decode(indices, n):
     built at once, the list before each chunk comes from a composition
     scan, and all chunks then decode at once.  Returns int32[n].
 
-    For a CUDA tensor (contiguous 1-D int32) it launches
-    ``csrc/mtf_undo.cu`` twice, for the permutations and for the decode,
-    with the composition scan between; for a CPU tensor it runs
-    `mtf_decode_plain`."""
+    For a CUDA tensor (contiguous 1-D int32) the stage is three launches
+    of ``csrc/mtf_undo.cu``: the chunks' and tiles' permutations, the
+    tiles' composition scan, and the decode, which rebuilds each chunk's
+    start list itself; for a CPU tensor it runs `mtf_decode_plain`."""
     if indices.device.type == 'cpu':
         return mtf_decode_plain(indices, n)
     _cuda.require_cuda(indices, 'mtf_decode')
@@ -151,17 +166,23 @@ def mtf_decode(indices, n):
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    n_tiles = -(-n_chunks // TILE_CHUNKS)
     perm = torch.empty((n_chunks, WIDTH), dtype=torch.uint8, device=dev)
+    agg = torch.empty((n_tiles, WIDTH), dtype=torch.uint8, device=dev)
+    lists = torch.empty_like(agg)
     lib = _cuda.lib()
     stream = _cuda.stream_handle(dev)
     _cuda.launches['mtf_undo'] += 1
     _cuda.check(lib.cz_mtf_undo_perm(indices.data_ptr(), perm.data_ptr(),
-                                     n, n_chunks, stream), 'mtf_undo')
-    lists = _start_lists(perm)
-    _cuda.launches['mtf_undo'] += 1
-    _cuda.check(lib.cz_mtf_undo_decode(indices.data_ptr(), lists.data_ptr(),
-                                       out.data_ptr(), n, n_chunks, stream),
+                                     agg.data_ptr(), n, n_chunks, stream),
                 'mtf_undo')
+    _cuda.launches['mtf_undo'] += 1
+    _cuda.check(lib.cz_mtf_undo_prefix(agg.data_ptr(), lists.data_ptr(),
+                                       n_tiles, stream), 'mtf_undo')
+    _cuda.launches['mtf_undo'] += 1
+    _cuda.check(lib.cz_mtf_undo_decode(indices.data_ptr(), perm.data_ptr(),
+                                       lists.data_ptr(), out.data_ptr(), n,
+                                       n_chunks, stream), 'mtf_undo')
     return out
 
 

@@ -6,12 +6,12 @@ move-to-front and RLE2 (counterpart of ``compressjs_tpu.ops.jax_kernels``).
   form, until all groups are singletons.  ``torch.sort`` takes one key,
   so every multi-key sort is built from stable sorts, least significant
   key first, over keys packed into int64.
-* `mtf_encode` -- chunked move-to-front: per-chunk start tables from a
-  max-scan over last occurrences, then `mtf_scan`, which launches the
-  CUDA MTF kernel (``csrc/mtf_scan.cu``, replacing the JAX package's
-  Pallas ``_mtf_kernel``) for a CUDA tensor and runs its plain version
-  `mtf_scan_plain`, one vector step per chunk position over every
-  chunk's table at once, for a CPU tensor.
+* `mtf_encode` -- chunked move-to-front: per-chunk start lists from a
+  max-scan over last occurrences, then the chunks' scans.  For a CUDA
+  tensor all of it is three launches of ``csrc/mtf_scan.cu`` (replacing
+  the JAX package's Pallas ``_mtf_kernel`` and its start tables); for a
+  CPU tensor the plain version `mtf_encode_plain` runs, one vector step
+  per chunk position over every chunk's list at once.
 * `rle2_encode` -- RUNA/RUNB zero-run digits by segment math.
 
 All functions take tensors on any device and return tensors on it.
@@ -24,6 +24,7 @@ import torch
 from . import _cuda
 
 CHUNK_LEN = 512          # MTF chunk length (fixed in csrc/mtf_scan.cu)
+TILE_CHUNKS = 16         # chunks per tile of the start-list scan (the same)
 MAX_BLOCK = 1 << 20      # ranks and indices must pack into 20 bits
 
 
@@ -128,31 +129,42 @@ def bwt_block(block, n):
 # ---------------------------------------------------------------------------
 # move-to-front
 
-def _chunk_start_positions(chunks, width=256):
-    """(n_chunks, width) position of each symbol at each chunk's start.
-
-    The MTF list before chunk t is all symbols ordered by the position of
-    their most recent occurrence in chunks[0:t] (most recent first), with
-    never-seen symbols in identity order -- modelled as virtual
-    occurrences at -(s+1).  So start tables fall out of an exclusive
-    max-scan of per-chunk last-occurrence vectors plus one rank-within-row
-    sort."""
+def _last_occurrences(chunks):
+    """(n_chunks, 256) int64: the global position of each symbol's last
+    occurrence in each chunk, -1 where it does not occur."""
     n_chunks, chunk_len = chunks.shape
     dev = chunks.device
     gpos = torch.arange(n_chunks * chunk_len, device=dev).view(
         n_chunks, chunk_len)
-    last_occ = torch.full((n_chunks, width), -1, dtype=torch.int64,
+    last_occ = torch.full((n_chunks, 256), -1, dtype=torch.int64,
                           device=dev)
     last_occ.scatter_reduce_(1, chunks.to(torch.int64), gpos, 'amax')
-    virt = -1 - torch.arange(width, device=dev)
+    return last_occ
+
+
+def _last_before(last_occ):
+    """Exclusive max-scan of `_last_occurrences` over chunks: each
+    symbol's last position before each chunk, with never-seen symbols
+    modelled as virtual occurrences at -(s+1) (so the first chunk's row is
+    the identity order)."""
+    width = last_occ.shape[1]
+    virt = -1 - torch.arange(width, device=last_occ.device)
     shifted = torch.cat([(virt - width)[None, :], last_occ[:-1]], 0)
-    before = torch.maximum(torch.cummax(shifted, 0).values, virt[None, :])
-    # all values of a row are distinct, so the rank order is unique
-    order = torch.sort(-before, dim=1, stable=True).indices
-    starts = torch.empty_like(order)
-    starts.scatter_(1, order, torch.arange(width, device=dev).expand(
-        n_chunks, width).contiguous())
-    return starts.to(torch.int32)
+    return torch.maximum(torch.cummax(shifted, 0).values, virt[None, :])
+
+
+def _chunk_start_lists(chunks):
+    """(n_chunks, 256) uint8: the MTF list (position -> symbol) at each
+    chunk's start.
+
+    The list before chunk t is all symbols ordered by the position of
+    their most recent occurrence in chunks[0:t] (most recent first), with
+    never-seen symbols in identity order.  So the lists fall out of an
+    exclusive max-scan of per-chunk last-occurrence vectors plus one
+    rank-within-row sort (never-seen symbols tie at -1 after the first
+    chunk; the stable sort keeps them in symbol order)."""
+    before = _last_before(_last_occurrences(chunks))
+    return torch.sort(-before, dim=1, stable=True).indices.to(torch.uint8)
 
 
 def _pad_chunks(data, n):
@@ -164,57 +176,72 @@ def _pad_chunks(data, n):
     return d.view(n_chunks, CHUNK_LEN)
 
 
-def mtf_scan_plain(data, starts):
+def mtf_scan_plain(data, lists):
     """MTF indices (int32) of data[:n], n = data.shape[0], chunk c starting
-    from table starts[c].  The plain version of the CUDA MTF kernel: one
-    vector step per chunk position, over all chunks at once."""
+    from list lists[c] (position -> symbol): one vector step per chunk
+    position, over all chunks at once."""
     n = data.shape[0]
     chunks = _pad_chunks(data, n)
-    pos = starts.to(torch.int32).clone()
     rows = torch.arange(chunks.shape[0], device=data.device)
+    lists = lists.to(torch.int64)
+    pos = torch.empty_like(lists)
+    pos.scatter_(1, lists, torch.arange(lists.shape[1], device=data.device)
+                 .expand_as(lists).contiguous())
     out = torch.empty_like(chunks, dtype=torch.int32)
     for t in range(CHUNK_LEN):
         s = chunks[:, t]
         j = pos[rows, s]
-        pos += (pos < j[:, None]).to(torch.int32)
+        pos += (pos < j[:, None]).to(torch.int64)
         pos[rows, s] = 0
-        out[:, t] = j
+        out[:, t] = j.to(torch.int32)
     return out.view(-1)[:n]
 
 
-def mtf_scan(data, starts):
-    """MTF indices (int32) of data (n,) int32, chunk c of CHUNK_LEN
-    symbols starting from table starts[c] (n_chunks, width) int32: the
-    CUDA kernel ``csrc/mtf_scan.cu`` for a CUDA tensor, `mtf_scan_plain`
-    for a CPU tensor; for a tensor anywhere else it raises."""
+def mtf_encode_plain(data, n):
+    """Plain version of `mtf_encode`: the start lists by `torch` sorts
+    and scans, then `mtf_scan_plain`."""
+    d = data[:n]
+    return mtf_scan_plain(d, _chunk_start_lists(_pad_chunks(d, n)))
+
+
+def mtf_encode(data, n):
+    """MTF indices (int32) of data[:n] (dense symbols < 256) with the
+    identity initial list, in chunks of CHUNK_LEN symbols that each start
+    from the list the symbols before them leave.
+
+    For a CUDA tensor (contiguous 1-D int32) the stage is three launches
+    of ``csrc/mtf_scan.cu``: each tile's last occurrences, their
+    exclusive max-scan over tiles, and the encode, which builds each
+    chunk's start list itself; for a CPU tensor it runs
+    `mtf_encode_plain`; for a tensor anywhere else it raises."""
     if data.device.type == 'cpu':
-        return mtf_scan_plain(data, starts)
-    _cuda.require_cuda(data, 'mtf_scan')
-    n = data.shape[0]
-    n_chunks, width = starts.shape
-    if (data.dtype != torch.int32 or starts.dtype != torch.int32
-            or not data.is_contiguous() or not starts.is_contiguous()
-            or starts.device != data.device):
-        raise ValueError('mtf_scan takes contiguous int32 tensors on one '
-                         'device')
-    if not 0 < width <= 256 or n_chunks != -(-n // CHUNK_LEN):
-        raise ValueError('mtf_scan: bad shape (n=%d, chunks=%d, width=%d)'
-                         % (n, n_chunks, width))
-    out = torch.empty_like(data)
+        return mtf_encode_plain(data, n)
+    _cuda.require_cuda(data, 'mtf_encode')
+    if (data.dim() != 1 or data.dtype != torch.int32
+            or not data.is_contiguous() or not 0 <= n <= data.shape[0]):
+        raise ValueError('mtf_encode takes a contiguous 1-D int32 tensor '
+                         'and 0 <= n <= its length')
+    dev = data.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    n_chunks = -(-n // CHUNK_LEN)
+    n_tiles = -(-n_chunks // TILE_CHUNKS)
+    agg = torch.empty((n_tiles, 256), dtype=torch.int32, device=dev)
+    pre = torch.empty_like(agg)
     lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
     _cuda.launches['mtf_scan'] += 1
-    _cuda.check(lib.cz_mtf_scan(data.data_ptr(), starts.data_ptr(),
-                                out.data_ptr(), n, n_chunks, width,
-                                _cuda.stream_handle(data.device)),
+    _cuda.check(lib.cz_mtf_encode_tiles(data.data_ptr(), agg.data_ptr(), n,
+                                        n_chunks, stream), 'mtf_scan')
+    _cuda.launches['mtf_scan'] += 1
+    _cuda.check(lib.cz_mtf_encode_prefix(agg.data_ptr(), pre.data_ptr(),
+                                         n_tiles, stream), 'mtf_scan')
+    _cuda.launches['mtf_scan'] += 1
+    _cuda.check(lib.cz_mtf_encode(data.data_ptr(), pre.data_ptr(),
+                                  out.data_ptr(), n, n_chunks, stream),
                 'mtf_scan')
     return out
-
-
-def mtf_encode(data, n, width=256):
-    """MTF indices of data[:n] (dense symbols < width) with the identity
-    initial list, through `mtf_scan`."""
-    d = data[:n].to(torch.int32).contiguous()
-    return mtf_scan(d, _chunk_start_positions(_pad_chunks(d, n), width))
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +294,7 @@ def encode_block_core(block, n, remap, eob):
     one block.  Returns (pidx, syms, count, freq).  MTF runs through the
     CUDA kernel for a block on the card."""
     U, pidx = bwt_block(block, n)
-    dense = remap[U.to(torch.int64)]
+    dense = remap[U.to(torch.int64)].to(torch.int32)
     mtf_seq = mtf_encode(dense, n)
     syms, count, freq = rle2_encode(mtf_seq, n, eob)
     return pidx, syms, count, freq

@@ -82,21 +82,25 @@ def _dense(width, n, seed):
 
 @pytest.mark.parametrize('width,n', [(64, 1500), (256, 2 * 512 + 77)])
 def test_chunk_start_positions(width, n):
+    """The plain start lists (position -> symbol) are the inverse of the
+    JAX package's start positions (symbol -> position); symbols past
+    `width` never occur, so they sit after the first `width` entries."""
     d = _dense(width, n, width)
     n_chunks = -(-n // 512)
     pad = np.zeros(n_chunks * 512, dtype=np.int32)
     pad[:n] = d
     want = np.asarray(jk._chunk_start_positions(
         jnp.asarray(pad.reshape(n_chunks, 512)), n_chunks, 512, width))
-    got = bk._chunk_start_positions(
-        torch.from_numpy(pad.reshape(n_chunks, 512)), width).numpy()
-    np.testing.assert_array_equal(got, want)
+    got = bk._chunk_start_lists(
+        torch.from_numpy(pad.reshape(n_chunks, 512))).numpy()
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(np.argsort(want, axis=1), got[:, :width])
 
 
 @pytest.mark.parametrize('width,n,seed', [(64, 1500, 1), (64, 3 * 512, 2),
                                           (256, 3077, 3), (256, 700, 4)])
 def test_mtf_encode(width, n, seed):
-    """The MTF encode on a CPU tensor (the kernel's plain version),
+    """The MTF encode on a CPU tensor (the kernels' plain version),
     against the XLA scan and the Pallas kernel in interpret mode."""
     d = _dense(width, n, seed)
     want = np.asarray(jk.mtf_encode(jnp.asarray(d), n, 512, width))
@@ -104,17 +108,17 @@ def test_mtf_encode(width, n, seed):
                                              interpret=True))
     np.testing.assert_array_equal(pallas, want)
     t = torch.from_numpy(d)
-    np.testing.assert_array_equal(bk.mtf_encode(t, n, width).numpy(), want)
+    np.testing.assert_array_equal(bk.mtf_encode(t, n).numpy(), want)
 
 
 def test_mtf_scan_cpu_takes_plain_version():
     d = torch.from_numpy(_dense(256, 1000, 5))
-    starts = bk._chunk_start_positions(bk._pad_chunks(d, 1000), 256)
+    lists = bk._chunk_start_lists(bk._pad_chunks(d, 1000))
     before = _cuda.launches['mtf_scan']
-    out = bk.mtf_scan(d, starts)
+    out = bk.mtf_encode(d, 1000)
     assert _cuda.launches['mtf_scan'] == before
     np.testing.assert_array_equal(out.numpy(),
-                                  bk.mtf_scan_plain(d, starts).numpy())
+                                  bk.mtf_scan_plain(d, lists).numpy())
 
 
 def _mtf_seq(kind, n):
@@ -165,8 +169,7 @@ def test_encode_block_core(kind):
 
 def test_mtf_scan_refuses_other_devices():
     """Only a CPU tensor takes the plain version; elsewhere the wrapper
-    launches its kernel or raises."""
+    launches its kernels or raises."""
     d = torch.empty(1000, dtype=torch.int32, device='meta')
-    starts = torch.empty(2, 256, dtype=torch.int32, device='meta')
     with pytest.raises(RuntimeError):
-        bk.mtf_scan(d, starts)
+        bk.mtf_encode(d, 1000)

@@ -42,11 +42,122 @@ def test_mtf_kernel_matches_plain(cuda, width, n):
     rng = np.random.default_rng(n)
     d = torch.from_numpy(np.minimum(rng.zipf(1.3, n) - 1, width - 1)
                          .astype(np.int32)).to(cuda)
-    starts = bk._chunk_start_positions(bk._pad_chunks(d, n), width)
     before = _cuda.launches['mtf_scan']
-    got = bk.mtf_scan(d, starts)
-    assert _cuda.launches['mtf_scan'] == before + 1
-    assert torch.equal(got, bk.mtf_scan_plain(d, starts))
+    got = bk.mtf_encode(d, n)
+    assert _cuda.launches['mtf_scan'] == before + 3
+    assert torch.equal(got.cpu(), bk.mtf_encode_plain(d.cpu(), n))
+
+
+def _cycle(period, n):
+    return (np.arange(n) % period).astype(np.int32)
+
+
+def _mtf_encode_case(case):
+    """(symbols int32, n): the warp design's edge cases."""
+    rng = np.random.default_rng(len(case))
+    if case == 'runs':
+        d = np.repeat(rng.integers(0, 40, 400), rng.integers(1, 90, 400))
+        return d.astype(np.int32), len(d)
+    if case in ('j31', 'j32', 'j255'):
+        return _cycle(int(case[1:]) + 1, 9000), 9000
+    if case == 'short':
+        return np.array([5, 5, 3, 200, 5, 0, 0, 7], np.int32), 8
+    if case == 'ragged':
+        n = 40 * bk.CHUNK_LEN + 77
+        return np.minimum(rng.zipf(1.2, n) - 1, 255).astype(np.int32), n
+    if case == 'run_across_edges':
+        c, t = bk.CHUNK_LEN, bk.TILE_CHUNKS * bk.CHUNK_LEN
+        d = rng.integers(0, 256, 40 * c + 40)
+        d[c - 12:c + 18] = 9
+        d[60:70] = 4
+        d[t - 3:t + 40] = 11
+        return d.astype(np.int32), len(d)
+    if case == 'uniform':
+        return rng.integers(0, 256, 899981).astype(np.int32), 899981
+    if case == 'zipf':
+        return np.minimum(rng.zipf(1.3, 899981) - 1, 255).astype(
+            np.int32), 899981
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize('case', ['runs', 'j31', 'j32', 'j255', 'short',
+                                  'ragged', 'run_across_edges', 'uniform',
+                                  'zipf'])
+def test_mtf_encode_edge_cases(cuda, case):
+    d, n = _mtf_encode_case(case)
+    got = bk.mtf_encode(torch.from_numpy(d).to(cuda), n)
+    want = bk.mtf_encode_plain(torch.from_numpy(d), n)
+    assert torch.equal(got.cpu(), want)
+    if case in ('j31', 'j32', 'j255'):
+        assert int(want[-1]) == int(case[1:])
+
+
+def _kernels_launched(fn):
+    """Device kernels one call of fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith('Memcpy')
+               and not e.name.startswith('Memset'))
+
+
+def test_mtf_stages_launch_three_kernels(cuda):
+    """Each MTF stage is three launches of its own source and nothing
+    else on the card (the profiler may miss a launch, never add one)."""
+    rng = np.random.default_rng(8)
+    d = torch.from_numpy(np.minimum(rng.zipf(1.3, 899981) - 1, 255)
+                         .astype(np.int32)).to(cuda)
+    for fn, counter in ((lambda: bk.mtf_encode(d, 899981), 'mtf_scan'),
+                        (lambda: bd.mtf_decode(d, 899981), 'mtf_undo')):
+        before = _cuda.launches[counter]
+        fn()
+        assert _cuda.launches[counter] - before == 3
+        assert _kernels_launched(fn) <= 3
+
+
+def test_mtf_start_list_kernels_match_plain(cuda):
+    """The first two launches of each direction against the plain start
+    lists: the encode's tile last occurrences and their prefix, the
+    decode's chunk permutations and tile lists."""
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(cuda)
+    d, n = _mtf_encode_case('ragged')
+    dd = torch.from_numpy(d).to(cuda)
+    chunks = -(-n // bk.CHUNK_LEN)
+    tiles = -(-chunks // bk.TILE_CHUNKS)
+    agg = torch.empty((tiles, 256), dtype=torch.int32, device=cuda)
+    pre = torch.empty_like(agg)
+    _cuda.check(lib.cz_mtf_encode_tiles(dd.data_ptr(), agg.data_ptr(), n,
+                                        chunks, stream), 'mtf_scan')
+    _cuda.check(lib.cz_mtf_encode_prefix(agg.data_ptr(), pre.data_ptr(),
+                                         tiles, stream), 'mtf_scan')
+    # each symbol's last position in each chunk, positions < n only
+    last = np.full((tiles * bk.TILE_CHUNKS, 256), -1, dtype=np.int64)
+    np.maximum.at(last, (np.arange(n) // bk.CHUNK_LEN, d), np.arange(n))
+    assert torch.equal(agg.cpu().long(), torch.from_numpy(
+        last.reshape(tiles, bk.TILE_CHUNKS, 256).max(1)))
+    assert torch.equal(pre.cpu().long(), bk._last_before(
+        torch.from_numpy(last[:chunks]))[::bk.TILE_CHUNKS])
+    idx = torch.from_numpy(np.minimum(np.random.default_rng(2).zipf(
+        1.3, n) - 1, 300).astype(np.int32)).to(cuda)
+    chunks = -(-n // bd.CHUNK_LEN)
+    tiles = -(-chunks // bd.TILE_CHUNKS)
+    perm = torch.empty((chunks, 256), dtype=torch.uint8, device=cuda)
+    tagg = torch.empty((tiles, 256), dtype=torch.uint8, device=cuda)
+    tl = torch.empty_like(tagg)
+    _cuda.check(lib.cz_mtf_undo_perm(idx.data_ptr(), perm.data_ptr(),
+                                     tagg.data_ptr(), n, chunks, stream),
+                'mtf_undo')
+    _cuda.check(lib.cz_mtf_undo_prefix(tagg.data_ptr(), tl.data_ptr(),
+                                       tiles, stream), 'mtf_undo')
+    _, pperm = bd._chunk_perms(idx.cpu(), n)
+    assert torch.equal(perm.cpu(), pperm)
+    assert torch.equal(tl.cpu(), bd._start_lists(pperm)[::bd.TILE_CHUNKS])
 
 
 def test_alloc_kernel_matches_plain(cuda):
@@ -67,9 +178,10 @@ def test_alloc_kernel_matches_plain(cuda):
 
 def test_wrappers_reject_bad_input(cuda):
     d = torch.zeros(100, dtype=torch.int64, device=cuda)
-    starts = torch.zeros(1, 256, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        bk.mtf_scan(d, starts)
+        bk.mtf_encode(d, 100)
+    with pytest.raises(ValueError):
+        bk.mtf_encode(d.int(), 101)
     with pytest.raises(ValueError):
         de.alloc_lengths(torch.zeros(2, 10, dtype=torch.int32, device=cuda),
                          torch.ones(2, dtype=torch.int32, device=cuda))
@@ -93,7 +205,7 @@ def test_golden_sample5_on_card(cuda):
         gold = f.read()
     before = dict(_cuda.launches)
     assert cz.compress_file_device(bz2.decompress(gold), level=9) == gold
-    assert _cuda.launches['mtf_scan'] - before['mtf_scan'] == 3
+    assert _cuda.launches['mtf_scan'] - before['mtf_scan'] == 3 * 3
     # the table builds are one fused launch each, up to 9 a block
     assert _cuda.launches['code_lengths'] - before['code_lengths'] >= 3
     assert _cuda.launches['alloc_lengths'] == before['alloc_lengths']
@@ -152,7 +264,7 @@ def test_decode_golden_sample5_on_card(cuda):
     assert _cuda.launches['compose_windowed'] - \
         before['compose_windowed'] == 7 * 3
     assert _cuda.launches['selector_chase'] - before['selector_chase'] == 3
-    assert _cuda.launches['mtf_undo'] - before['mtf_undo'] == 2 * 3
+    assert _cuda.launches['mtf_undo'] - before['mtf_undo'] == 3 * 3
 
 
 @pytest.mark.parametrize('n', [899981, 5037, 512, 1])
@@ -164,7 +276,7 @@ def test_mtf_undo_kernel_matches_plain(cuda, n):
     idx = torch.from_numpy(idx).to(cuda)
     before = _cuda.launches['mtf_undo']
     got = bd.mtf_decode(idx, n)
-    assert _cuda.launches['mtf_undo'] == before + 2
+    assert _cuda.launches['mtf_undo'] == before + 3
     assert torch.equal(got, bd.mtf_decode_plain(idx, n))
 
 

@@ -43,7 +43,7 @@ def stage_targets():
         (dh, 'selector_chase', 'device: walk selector chase (kernel)'),
         (dec, 'bwt_column', 'device: BWT column (all)'),
         (dh, 'rle2_decode', 'device: RLE2 undo'),
-        (dh, 'mtf_decode', 'device: MTF undo (2 kernels + scan)'),
+        (dh, 'mtf_decode', 'device: MTF undo (3 kernels)'),
         (dec, '_device_entropy_collect', 'host: read-back + checks'),
         (dh, 'inverse_bwt_block_masked', 'device: inverse BWT'),
         (dh, 'rle1_decode_dev', 'device: RLE1 undo'),

@@ -50,7 +50,7 @@ def stage_targets():
         (pl, 'crc32_bzip2', 'host: block CRC'),
         (pl, 'block_inputs', 'host->device block copy'),
         (bk, 'bwt_block', 'device: rotation sort + BWT'),
-        (bk, 'mtf_encode', 'device: MTF (start tables + kernel)'),
+        (bk, 'mtf_encode', 'device: MTF (3 kernels)'),
         (bk, 'rle2_encode', 'device: RLE2'),
         (de, 'optimize_groups_dev', 'device: group optimisation'),
         (de, 'code_lengths_batch', 'device: table builds (inside group '
