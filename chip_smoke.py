@@ -17,11 +17,16 @@ latency probes that floor the chase and
 the allocator (one thread's chain from L2 and from shared memory, one
 SM's staging rate), counts the group optimisation's launches and
 syncing reads per block with the fused build and with the build it
-replaced, re-encodes the in-repo bzip2 goldens at
--9 through ``compress_file_device`` and decodes them through
-``decompress_file_device``, decodes a stream whose magic scan reports a
-false end magic inside a payload, checks the bytes, times the encode,
-the decode and each kernel, and prints:
+replaced, builds the native host runtime with g++ and holds each of its
+entries equal to its numpy twin on every sample5x4 block (timing both),
+re-encodes the in-repo bzip2 goldens at -9 through
+``compress_file_device`` in every encoder split ('full', the main path;
+'core', 'hybrid', 'hybrid' with one batched BWT, 'hybrid' with
+self_check), each with the kernel launches its split must make, decodes
+them through ``decompress_file_device``, decodes a stream whose magic
+scan reports a false end magic inside a payload, checks the bytes, times
+the encode in each split (wall and the card's idle share), the decode
+and each kernel, and prints:
 
 * the card's name and power limit, as nvidia-smi reports them;
 * one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -869,6 +874,157 @@ def decode_chases(comp):
     return seen
 
 
+def timed(fn, *args):
+    """(fn(*args), wall seconds)."""
+    t0 = time.perf_counter()
+    r = fn(*args)
+    return r, time.perf_counter() - t0
+
+
+def check_host_runtime(data):
+    """Each native entry of the host runtime against its numpy twin on
+    every -9 block of `data`; returns {entry: dict of per-block ms, calls
+    and the JAX function it counts as}.  The plain cyclic BWT (numpy
+    prefix doubling, seconds a block) runs on the first block only."""
+    from compressjs_tpu_torch.host import bwt, mtf_rle2 as mr, rle1
+    from compressjs_tpu_torch.host import huffman_stages as hs
+    data = np.frombuffer(data, np.uint8)
+    t = {}
+
+    def add(name, ms, plain_ms):
+        e = t.setdefault(name, {'ms': 0.0, 'plain_ms': 0.0, 'calls': 0,
+                                'plain_calls': 0})
+        e['ms'] += ms
+        e['calls'] += 1
+        if plain_ms is not None:
+            e['plain_ms'] += plain_ms
+            e['plain_calls'] += 1
+
+    start = 0
+    blocks = []
+    while start < data.shape[0]:
+        (b, used), sec = timed(rle1.rle1_encode, data, start, 899981)
+        (pb, pused), psec = timed(rle1.rle1_encode_plain, data, start, 899981)
+        if used != pused or not np.array_equal(b, pb):
+            raise AssertionError('native RLE1 differs from its twin at %d'
+                                 % start)
+        add('cz_rle1_encode', sec * 1e3, psec * 1e3)
+        blocks.append(b)
+        start += used
+    for i, b in enumerate(blocks):
+        n = b.shape[0]
+        U = np.zeros(n, np.uint8)
+        pidx, sec = timed(bwt.bwtransform2, b, U, n)
+        plain_ms = None
+        if i == 0:
+            Up = np.zeros(n, np.uint8)
+            pp, psec = timed(bwt.bwtransform2_plain, b, Up, n)
+            if pp != pidx or not np.array_equal(U, Up):
+                raise AssertionError('native BWT differs from its twin')
+            plain_ms = psec * 1e3
+        add('cz_bwt_cyclic', sec * 1e3, plain_ms)
+        al = np.flatnonzero(np.bincount(b, minlength=256)).astype(np.uint8)
+        (syms, freq), sec = timed(mr.mtf_rle2, U, al, len(al))
+        (ps, pf), psec = timed(mr.mtf_rle2_plain, U, al, len(al))
+        if not (np.array_equal(syms, ps) and np.array_equal(freq, pf)):
+            raise AssertionError('native MTF+RLE2 differs from its twin')
+        add('cz_mtf_rle2', sec * 1e3, psec * 1e3)
+        m = len(al) + 2
+        (lens, sel), sec = timed(hs.optimize_groups, syms, m, freq, False)
+        (pl, ps_), psec = timed(hs.optimize_groups_plain, syms, m, freq,
+                                False)
+        if not (np.array_equal(lens, pl) and np.array_equal(sel, ps_)):
+            raise AssertionError('native group optimisation differs from '
+                                 'its twin')
+        add('optimize_groups', sec * 1e3, psec * 1e3)
+        g = lens.shape[0]
+        for name, fn, twin, args in [
+                ('cz_huff_code_lengths', hs.code_lengths_from_freqs,
+                 hs.code_lengths_plain, (freq, m)),
+                ('cz_group_costs', hs.group_costs, hs.group_costs_plain,
+                 (lens, syms)),
+                ('cz_chunk_freqs', hs.chunk_freqs, hs.chunk_freqs_plain,
+                 (syms, sel, g, m)),
+                ('cz_selector_mtf', hs.selector_mtf_bits,
+                 hs.selector_mtf_bits_plain, (sel, g))]:
+            got, sec = timed(fn, *args)
+            want, psec = timed(twin, *args)
+            if not np.array_equal(got, want):
+                raise AssertionError('%s differs from its twin' % name)
+            add(name, sec * 1e3, psec * 1e3)
+        codes = np.stack([hs.canonical_codes(row) for row in lens])
+        got, sec = timed(hs.payload_bytes, syms, sel, lens, codes)
+        want, psec = timed(hs.payload_bytes_plain, syms, sel, lens, codes)
+        if got[1] != want[1] or not np.array_equal(got[0], want[0]):
+            raise AssertionError('native payload pack differs from its twin')
+        add('cz_payload_pack', sec * 1e3, psec * 1e3)
+    jax_of = {
+        'cz_rle1_encode': 'ops/rle.py:43 rle1_encode (native :1412)',
+        'cz_bwt_cyclic': 'ops/bwt.py:221 bwtransform2 (native :861)',
+        'cz_mtf_rle2': 'codecs/bzip2.py:81 mtf_rle2 (native :1229)',
+        'optimize_groups': 'ops/huffman_stages.py:204 optimize_groups',
+        'cz_huff_code_lengths': 'ops/huffman_stages.py:36 '
+                                'code_lengths_from_freqs (native :813)',
+        'cz_group_costs': 'ops/huffman_stages.py:88 group_costs '
+                          '(native :1267)',
+        'cz_chunk_freqs': 'ops/huffman_stages.py:110 chunk_freqs '
+                          '(native :1285)',
+        'cz_selector_mtf': 'ops/huffman_stages.py:326 selector_mtf_bits '
+                           '(native :829)',
+        'cz_payload_pack': 'ops/huffman_stages.py:294 payload_bytes '
+                           '(native :1301)'}
+    out = {}
+    for name, e in t.items():
+        out[name] = {'jax': jax_of[name], 'calls': e['calls'],
+                     'ms_per_call': e['ms'] / e['calls'],
+                     'plain_ms_per_call': e['plain_ms'] / e['plain_calls'],
+                     'plain_calls': e['plain_calls']}
+    return out, len(blocks), data.shape[0]
+
+
+def busy_ms(events):
+    """Union of the card's kernel intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, cur_s, cur_e = 0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+# the encoder configurations the smoke drives: the main path, 'full',
+# first, then the other two splits and the batched BWT
+ENCODE_MODES = [('full', {'mode': 'full'}), ('core', {'mode': 'core'}),
+                ('hybrid', {'mode': 'hybrid'}),
+                ('hybrid_batch', {'mode': 'hybrid', 'batch': True})]
+
+
+def mode_timing(cz, data, want, kw):
+    """(wall s of one warm encode, its profiled wall s, the card's busy
+    ms in the profiled run, its idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    out, wall = timed(lambda: cz.compress_file_device(data, level=9, **kw))
+    torch.cuda.synchronize()
+    if out != want:
+        raise AssertionError('timed encode differs from the golden: %s' % kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cz.compress_file_device(data, level=9, **kw)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = busy_ms(prof.events())
+    return wall, pwall, busy, 1 - busy / (pwall * 1e3)
+
+
 def main():
     t_start = time.perf_counter()
     # a hang anywhere prints every thread's stack and exits non-zero
@@ -904,6 +1060,29 @@ def main():
 
     s5_comp, s5 = golden('sample5_bzip2_9.bz2')
     s5x4_comp, s5x4 = golden('sample5x4_bzip2_9.bz2')
+
+    phase('native host runtime')
+    from compressjs_tpu_torch import native
+    native.lib()
+    print('  build %.2f s -> %s; %s; host CPU %s, -march=native is %s'
+          % (native.build_info['seconds'], native.build_info['path'],
+             native.build_info['compiler'], native.build_info['cpu'],
+             native.build_info['march']))
+    host_rt, n_host_blocks, n_host_bytes = check_host_runtime(s5x4)
+    for name, e in host_rt.items():
+        print('  %-20s native %.4f ms x %d, numpy twin %.4f ms x %d '
+              '(equal); JAX %s' % (name, e['ms_per_call'], e['calls'],
+                                   e['plain_ms_per_call'], e['plain_calls'],
+                                   e['jax']))
+    print('  RLE1 split of sample5x4 (%d B, %d blocks): native %.4f s, '
+          'numpy twin %.4f s'
+          % (n_host_bytes, n_host_blocks,
+             host_rt['cz_rle1_encode']['ms_per_call'] * n_host_blocks / 1e3,
+             host_rt['cz_rle1_encode']['plain_ms_per_call']
+             * n_host_blocks / 1e3))
+    print('  host runtime: ' + json.dumps({
+        'cpu': native.build_info['cpu'], 'march': native.build_info['march'],
+        'entries': host_rt}))
 
     phase('MTF encode kernels vs plain versions')
     rng = np.random.default_rng(1234)
@@ -1050,6 +1229,31 @@ def main():
             launches['code_lengths'] < n_blocks:
         raise AssertionError('main path skipped a kernel: %s' % launches)
 
+    phase('encode modes')
+    # each split and the batched BWT, each on its own counts; 'core'
+    # runs the MTF kernel and builds its tables on the host, 'hybrid'
+    # runs only the torch sort and BWT on the card
+    mode_launches = {'full': launches}
+    runs = ENCODE_MODES[1:] + [('hybrid_self_check',
+                                {'mode': 'hybrid', 'self_check': True})]
+    for name, kw in runs:
+        for k in _cuda.launches:
+            _cuda.launches[k] = 0
+        enc = cz.DeviceBzip2Encoder(9, device='cuda', **kw)
+        out = enc.compress(s5x4)
+        torch.cuda.synchronize()
+        got = mode_launches[name] = dict(_cuda.launches)
+        print('  %s: %d bytes -> %d bytes, launches %s'
+              % (name, len(s5x4), len(out), got))
+        if out != s5x4_comp:
+            raise AssertionError('%s encode differs from the golden' % name)
+        want_mtf = 3 * n_blocks if kw['mode'] == 'core' else 0
+        if got['mtf_scan'] != want_mtf or got['code_lengths'] \
+                or got['alloc_lengths']:
+            raise AssertionError('%s encode launched %s, not %d mtf_scan '
+                                 'and no table build' % (name, got,
+                                                         want_mtf))
+
     phase('main path: sample5x4 -9 decode')
     from compressjs_tpu_torch.host.bzip2_parse import _parse_candidates
     for name in _cuda.launches:
@@ -1134,6 +1338,16 @@ def main():
     print('  sample5x4 -9 encode: wall %.3f s (%.3f MB/s), CUDA events '
           '%.3f s' % (wall, len(s5x4) / wall / 1e6,
                       t0.elapsed_time(t1) / 1e3))
+    mode_times = {}
+    for name, kw in ENCODE_MODES:
+        wall, pwall, busy, idle = mode_timing(cz, s5x4, s5x4_comp, kw)
+        mode_times[name] = {'wall_s': wall, 'mb_s': len(s5x4) / wall / 1e6,
+                            'profiled_wall_s': pwall, 'busy_ms': busy,
+                            'idle_share': idle}
+        print('  sample5x4 -9 encode, %s: wall %.4f s (%.4f MB/s); '
+              'profiled %.4f s, card busy %.3f ms, idle share %.4f; %s'
+              % (name, wall, len(s5x4) / wall / 1e6, pwall, busy, idle,
+                 card))
     torch.cuda.synchronize()
     w0 = time.perf_counter()
     t0.record()
@@ -1158,6 +1372,8 @@ def main():
          'replaces': 'compressjs_tpu/ops/pallas_kernels.py:51 (with the '
                      'start tables of jax_kernels.py:365)',
          'launches': launches['mtf_scan'],
+         'launches_by_mode': {k: v['mtf_scan']
+                              for k, v in mode_launches.items()},
          'max_abs_err': max(mtf_real['err'], mtf_rand['err'],
                             mtf_real['lists_err'], mtf_rand['lists_err']),
          # the three launches of one stage, back to back
@@ -1175,6 +1391,8 @@ def main():
          'replaces': 'compressjs_tpu/ops/device_entropy.py:238 (with the '
                      'sort and scatter of code_lengths_batch :438)',
          'launches': launches['code_lengths'],
+         'launches_by_mode': {k: v['code_lengths']
+                              for k, v in mode_launches.items()},
          'max_abs_err': build['err'], 'ms': build['ms'],
          'plain_ms': build['plain_ms'], 'bound_ms': build['bound_ms'],
          'bound_by': build['bound_by'], 'library_ms': None,
@@ -1264,6 +1482,7 @@ def main():
          'zipf_ms': undo_rand['ms'],
          'ptxas': {k: v for k, v in frames.items() if 'undo' in k}},
     ]
+    print('encode modes: ' + json.dumps(mode_times))
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -1,14 +1,17 @@
 """bzip2's RLE1 block fill (runs of 4 identical bytes followed by a
-count byte 0-251), numpy build.
+count byte 0-251).
 
-Semantics match the reference encoder loop, including the lazy
-count-byte emission and its interaction with block-boundary cuts, but
-expressed as run-segmented array math rather than a byte loop.
+`rle1_encode` runs the native runtime's byte loop every time.
+`rle1_encode_plain` is its plain twin for the tests: the same
+semantics, including the lazy count-byte emission and its interaction
+with block-boundary cuts, as run-segmented numpy array math.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 
 def run_lengths(data):
@@ -38,6 +41,20 @@ def rle1_encode(data, start, block_size):
 
     Returns (block, consumed): the packed uint8 block (len <= block_size)
     and the count of input bytes used."""
+    data = np.asarray(data)
+    if data.shape[0] - start <= 0:
+        return np.zeros(0, dtype=np.uint8), 0
+    return native.rle1_encode(data[start:], block_size)
+
+
+def rle1_encode_plain(data, start, block_size):
+    """Plain twin of `rle1_encode` (numpy), a copy of the JAX package's
+    numpy path.  Where the input ends on a 4-run with one block byte
+    left, the native loop writes the count byte there and this does not.
+    The JAX package takes its numpy path only for the last 4,096 input
+    bytes or fewer, which never fill a block of 99,981 bytes or more, so
+    its encoder and this package's agree; the tests hold each twin to
+    its JAX counterpart."""
     data = np.asarray(data)
     avail = data.shape[0] - start
     if avail <= 0:

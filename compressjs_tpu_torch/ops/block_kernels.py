@@ -126,6 +126,56 @@ def bwt_block(block, n):
     return block[:n][prev], pidx
 
 
+def bwt_block_batch(blocks, n):
+    """Cyclic BWT of each row of a (B, n) uint8 batch in one sort per
+    round: (U (B, n) uint8, pidx (B,)), equal to `bwt_block` row by row.
+
+    The rows are sorted as one array whose most significant key is the
+    row, so each doubling round is the same few stable sorts as for one
+    block, and rounds run until the slowest row resolves (a resolved
+    row's distinct ranks keep their order in later rounds)."""
+    B = blocks.shape[0]
+    if not 0 < n < MAX_BLOCK or blocks.shape[1] != n:
+        raise ValueError('blocks of length %d outside 1..%d'
+                         % (n, MAX_BLOCK - 1))
+    dev = blocks.device
+    bu = blocks.to(torch.int64)
+    row = torch.arange(B, device=dev).repeat_interleave(n)
+
+    def roll(x, d):                  # x[b, (i + d) % n], flattened
+        return torch.roll(x.view(B, n), -d, 1).reshape(-1)
+
+    def word(d):
+        return ((roll(bu, d) << 24) | (roll(bu, d + 1) << 16)
+                | (roll(bu, d + 2) << 8) | roll(bu, d + 3))
+
+    # ranks are group-start positions within the row (< 2^20); the row
+    # joins the most significant key of each sort
+    hi = (word(0) - (1 << 31)) * (1 << 32) + word(4)
+    lo = (word(8) - (1 << 31)) * (1 << 32) + word(12)
+    keys = [row, hi, lo]
+    order = _lex_order(keys)
+    base = row * n
+    rank, tied = _ranks_from_order(keys, order)
+    rank -= base
+    k = 16
+    while tied > 0 and k < n:
+        packed = (row << 40) | (rank << 20) | roll(rank, k)
+        low = (roll(rank, 2 * k) << 20) | roll(rank, 3 * k)
+        order = _lex_order([packed, low])
+        rank, tied = _ranks_from_order([packed, low], order)
+        rank -= base
+        k *= 4
+    if tied > 0:
+        # periodic rows: order by (row, rank, index descending)
+        idx = torch.arange(n, device=dev).repeat(B)
+        order = torch.sort((base + rank) * n + (n - 1 - idx)).indices
+    order = order.view(B, n) - base.view(B, n)
+    prev = torch.where(order == 0, n - 1, order - 1)
+    pidx = torch.argmax((order == 0).to(torch.int32), 1)
+    return torch.gather(blocks, 1, prev), pidx
+
+
 # ---------------------------------------------------------------------------
 # move-to-front
 

@@ -211,6 +211,40 @@ def test_golden_sample5_on_card(cuda):
     assert _cuda.launches['alloc_lengths'] == before['alloc_lengths']
 
 
+@pytest.mark.parametrize('kw', [{'mode': 'full'}, {'mode': 'core'},
+                                {'mode': 'hybrid'},
+                                {'mode': 'hybrid', 'batch': True},
+                                {'mode': 'hybrid', 'self_check': True}])
+def test_modes_golden_sample5_on_card(cuda, kw):
+    """Each split re-encodes the -9 golden; 'core' launches the MTF
+    kernel 3 times a block and builds its tables on the host, 'hybrid'
+    launches neither."""
+    with open(os.path.join(GOLDEN, 'sample5_bzip2_9.bz2'), 'rb') as f:
+        gold = f.read()
+    before = dict(_cuda.launches)
+    enc = cz.DeviceBzip2Encoder(9, **kw)
+    assert enc.compress(bz2.decompress(gold)) == gold
+    mtf = _cuda.launches['mtf_scan'] - before['mtf_scan']
+    tables = _cuda.launches['code_lengths'] - before['code_lengths']
+    if kw['mode'] == 'full':
+        assert mtf == 3 * 3 and tables >= 3
+    elif kw['mode'] == 'core':
+        assert mtf == 3 * 3 and tables == 0
+    else:
+        assert mtf == 0 and tables == 0
+
+
+def test_bwt_block_batch_on_card_equals_rows(cuda):
+    rng = np.random.default_rng(12)
+    blocks = torch.from_numpy(np.stack([
+        rng.integers(0, 256, 99981).astype(np.uint8),
+        np.frombuffer((b'abcabd' * 20000)[:99981], np.uint8)])).to(cuda)
+    U, pidx = bk.bwt_block_batch(blocks, 99981)
+    for b in range(2):
+        U_b, p_b = bk.bwt_block(blocks[b], 99981)
+        assert torch.equal(U[b], U_b) and int(pidx[b]) == int(p_b)
+
+
 @pytest.mark.parametrize('G,cap,blo,bhi', [
     (6, 8192, 2, 40), (2, 8192, 1, 20), (6, 8192, 33, 635),
     (1, 100, 1, 20), (6, 1 << 20, 4, 80)])

@@ -4,11 +4,12 @@ the JAX package's originals."""
 import numpy as np
 import pytest
 
+from compressjs_tpu import native as native_ref
 from compressjs_tpu.codecs import bzip2 as bzip2_ref
 from compressjs_tpu.ops import huffman_stages as hs
 from compressjs_tpu.ops import rle as rle_ref
 from compressjs_tpu.utils import crc32 as crc_ref
-from compressjs_tpu_torch.host import bits, crc32, huffman_headers, rle1
+from compressjs_tpu_torch.host import bits, crc32, huffman_stages, rle1
 
 
 @pytest.mark.parametrize('data', [b'', b'a', b'hello world' * 1000,
@@ -42,27 +43,34 @@ def test_rle1_encode(case):
         data, bs = _runs(2, 500, [255, 256, 300, 1000]), 1500
     else:   # a count byte lands on the last slot of a block
         data, bs = np.full(40, 9, dtype=np.uint8), 5
-    start = 0
-    while start < data.shape[0]:
-        got, used = rle1.rle1_encode(data, start, bs)
-        want, used_ref = rle_ref.rle1_encode(data, start, bs)
-        np.testing.assert_array_equal(got, want)
-        assert used == used_ref
-        if used == 0:
-            break
-        start += used
+    # the port's native fill against the JAX package's native one, and
+    # the port's numpy twin against rle_ref.rle1_encode, which takes its
+    # numpy path for inputs this small
+    for split, split_ref in [
+            (rle1.rle1_encode, lambda d, s, b: native_ref.rle1_encode(
+                d[s:], b)),
+            (rle1.rle1_encode_plain, rle_ref.rle1_encode)]:
+        start = 0
+        while start < data.shape[0]:
+            got, used = split(data, start, bs)
+            want, used_ref = split_ref(data, start, bs)
+            np.testing.assert_array_equal(got, want)
+            assert used == used_ref
+            if used == 0:
+                break
+            start += used
 
 
 def test_table_deltas_and_selectors():
     rng = np.random.default_rng(3)
     for _ in range(5):
         lens = rng.integers(1, 21, 258).astype(np.uint8)
-        np.testing.assert_array_equal(huffman_headers.emit_table_deltas(lens),
+        np.testing.assert_array_equal(huffman_stages.emit_table_deltas(lens),
                                       hs.emit_table_deltas(lens))
         g = int(rng.integers(2, 7))
         sel = rng.integers(0, g, 400).astype(np.uint8)
         np.testing.assert_array_equal(
-            huffman_headers.selector_mtf_bits(sel, g),
+            huffman_stages.selector_mtf_bits(sel, g),
             hs.selector_mtf_bits(sel, g))
 
 

@@ -48,11 +48,22 @@ def _input(kind):
     raise ValueError(kind)
 
 
+ENCODERS = {
+    'full': dict(mode='full'),
+    'core': dict(mode='core'),
+    'hybrid': dict(mode='hybrid'),
+    'hybrid_batch': dict(mode='hybrid', batch=True),
+    'hybrid_self_check': dict(mode='hybrid', self_check=True),
+}
+
+
+@pytest.mark.parametrize('encoder', list(ENCODERS))
 @pytest.mark.parametrize('kind', ['text_150k', 'short', 'empty', 'runs',
                                   'random'])
-def test_level1_matches_host_codec(kind):
+def test_level1_matches_host_codec(kind, encoder):
     data = _input(kind)
-    got = cz.compress_file_device(data, level=1, device='cpu')
+    enc = cz.DeviceBzip2Encoder(1, device='cpu', **ENCODERS[encoder])
+    got = enc.compress(data)
     want = bytes(bzip2_ref.compress_file(data, None, 1))
     assert got == want
     assert bz2.decompress(got) == data
@@ -106,6 +117,12 @@ def test_import_isolation():
             'import compressjs_tpu_torch.ops.device_huffman;'
             'import compressjs_tpu_torch.host.bzip2_parse;'
             'import compressjs_tpu_torch.parallel.decode;'
+            'import compressjs_tpu_torch.native;'
+            'import compressjs_tpu_torch.host.huffman_stages;'
+            'import compressjs_tpu_torch.host.bwt;'
+            'import compressjs_tpu_torch.host.mtf_rle2;'
+            'import compressjs_tpu_torch.parallel.profiling;'
+            'compressjs_tpu_torch.native.lib();'
             'bad = [m for m in sys.modules if m.split(".")[0].startswith('
             '"jax") or m.split(".")[0] == "compressjs_tpu"];'
             'print(bad); sys.exit(1 if bad else 0)')

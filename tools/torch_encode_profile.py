@@ -2,20 +2,24 @@
 """Where the time of compressjs_tpu_torch's -9 encode goes, on one CUDA
 card.
 
-    python3 tools/torch_encode_profile.py [--out PATH]
+    python3 tools/torch_encode_profile.py [--mode full|core|hybrid]
+                                          [--batch] [--out PATH]
 
 Encodes the decoded sample5x4 golden (8,522,560 B) with
-``compress_file_device(level=9)`` three times after a warm-up:
+``compress_file_device(level=9, mode=...)`` three times after a warm-up:
 
 1. untimed stages, wall clock only (the end-to-end number);
-2. with every stage wrapped in a timer that synchronises the card
-   before and after it, so each stage's wall time includes its device
-   work (the syncs cost a little; run 1 shows how much);
+2. with every stage wrapped in a timer: a device stage synchronises the
+   card before and after it, so its wall time includes its device work
+   (the syncs cost a little; run 1 shows how much); a host stage is
+   timed on the host clock alone.  The device stages run on the
+   encoder's worker thread, the host entropy stage on the calling
+   thread at the same time, so their sums can exceed the wall;
 3. under ``torch.profiler``: device time by kernel name and the card's
    busy share of the run's wall time (union of kernel intervals).
 
-Prints one JSON object with the card's name and power limit, and also
-writes it to --out when given.
+Prints one JSON object with the card's name and power limit and the
+host CPU's model name, and also writes it to --out when given.
 """
 
 import argparse
@@ -29,6 +33,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,22 +47,36 @@ def card_line():
 
 
 def stage_targets():
+    """(module, function name, label, synchronise the card?) of each
+    stage."""
     from compressjs_tpu_torch.ops import block_kernels as bk
     from compressjs_tpu_torch.ops import device_entropy as de
     from compressjs_tpu_torch.parallel import pipeline as pl
     return [
-        (pl, 'rle1_encode', 'host: RLE1 split'),
-        (pl, 'crc32_bzip2', 'host: block CRC'),
-        (pl, 'block_inputs', 'host->device block copy'),
-        (bk, 'bwt_block', 'device: rotation sort + BWT'),
-        (bk, 'mtf_encode', 'device: MTF (3 kernels)'),
-        (bk, 'rle2_encode', 'device: RLE2'),
-        (de, 'optimize_groups_dev', 'device: group optimisation'),
+        (pl, 'rle1_encode', 'host: RLE1 split (native)', False),
+        (pl, 'crc32_bzip2', 'host: block CRC', False),
+        (pl, 'mtf_rle2', 'host: MTF + RLE2 (native; hybrid)', False),
+        (pl, '_finish_block', 'host: entropy stage (native; core, '
+         'hybrid)', False),
+        (pl, '_device_block_header', 'host: block header bits (full)',
+         False),
+        (pl, 'block_inputs', 'host->device block copy', True),
+        (bk, 'bwt_block', 'device: rotation sort + BWT', True),
+        (bk, 'bwt_block_batch', 'device: batched sort + BWT', True),
+        (bk, 'mtf_encode', 'device: MTF (3 kernels)', True),
+        (bk, 'rle2_encode', 'device: RLE2', True),
+        (de, 'optimize_groups_dev', 'device: group optimisation', True),
         (de, 'code_lengths_batch', 'device: table builds (inside group '
-         'optimisation)'),
-        (de, 'payload_pack_words_dev', 'device: payload pack'),
-        (pl, '_device_block_header', 'host: block header bits'),
+         'optimisation)', True),
+        (de, 'payload_pack_words_dev', 'device: payload pack', True),
     ]
+
+
+# the roofline model of each device stage that has one
+ROOFLINE_STAGES = {'device: rotation sort + BWT': 'bwt',
+                   'device: batched sort + BWT': 'bwt',
+                   'device: MTF (3 kernels)': 'mtf',
+                   'device: RLE2': 'rle2'}
 
 
 @contextlib.contextmanager
@@ -68,14 +87,16 @@ def timed_stages(targets):
     totals = collections.defaultdict(float)
     counts = collections.Counter()
     undo = []
-    for mod, name, label in targets:
+    for mod, name, label, sync in targets:
         orig = getattr(mod, name)
 
-        def timed(*a, _orig=orig, _label=label, **k):
-            torch.cuda.synchronize()
+        def timed(*a, _orig=orig, _label=label, _sync=sync, **k):
+            if _sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = _orig(*a, **k)
-            torch.cuda.synchronize()
+            if _sync:
+                torch.cuda.synchronize()
             totals[_label] += time.perf_counter() - t0
             counts[_label] += 1
             return r
@@ -109,6 +130,10 @@ def busy_ms(events):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument('--mode', default='full',
+                    choices=['full', 'core', 'hybrid'])
+    ap.add_argument('--batch', action='store_true',
+                    help="one batched BWT call ('hybrid')")
     ap.add_argument('--out', help='also write the JSON here')
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -123,7 +148,8 @@ def main():
     data = bz2.decompress(gold)
 
     def encode():
-        out = cz.compress_file_device(data, level=9)
+        out = cz.compress_file_device(data, level=9, mode=args.mode,
+                                      batch=args.batch)
         torch.cuda.synchronize()
         if out != gold:
             raise AssertionError('encode differs from the golden')
@@ -159,9 +185,17 @@ def main():
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     busy = busy_ms(events)
 
+    from compressjs_tpu_torch import native
+    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    from compressjs_tpu_torch.parallel.profiling import roofline
+    block_bytes = sum(b.shape[0] for b, _ in _split_blocks(
+        np.frombuffer(data, np.uint8), 899981))
     result = {
         'card': card_line(),
         'device': torch.cuda.get_device_name(0),
+        'host_cpu': native.cpu_model(),
+        'mode': args.mode,
+        'batch': args.batch,
         'input_bytes': len(data),
         'encode_wall_s': wall,
         'encode_mb_s': len(data) / wall / 1e6,
@@ -170,6 +204,9 @@ def main():
         'stages_s': {k: totals[k] for k in sorted(totals,
                                                   key=lambda k: -totals[k])},
         'stage_calls': dict(counts),
+        'block_bytes': block_bytes,
+        'roofline': {k: roofline(ROOFLINE_STAGES[k], block_bytes, totals[k])
+                     for k in totals if k in ROOFLINE_STAGES},
         'profiled_wall_s': prof_wall,
         'device_kernel_launches': sum(launches.values()),
         'device_busy_ms': busy if by_kernel else 'not measured',
