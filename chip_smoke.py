@@ -24,9 +24,18 @@ re-encodes the in-repo bzip2 goldens at -9 through
 'core', 'hybrid', 'hybrid' with one batched BWT, 'hybrid' with
 self_check), each with the kernel launches its split must make, decodes
 them through ``decompress_file_device``, decodes a stream whose magic
-scan reports a false end magic inside a payload, checks the bytes, times
-the encode in each split (wall and the card's idle share), the decode
-and each kernel, and prints:
+scan reports a false end magic inside a payload, checks the bytes;
+then the multi-block paths: in an NCCL process group of one rank (a
+FileStore, no network) ``mesh_compress_bzip2`` of sample5x4 against the
+golden and ``decompress_file_mesh`` with host and device entropy, each
+with the kernel launches it must make, and ``sharded_block_decode`` of
+sample5x4's BWT columns; ``decompress_file_parallel`` of both goldens
+and the native host block decode against its numpy twins;
+``hetero_compress_bzip2`` of sample5x4 tiled three times against
+``compress_file_device``'s stream, failing unless the device worker
+encoded blocks.  It times the encode in each split (wall and the card's
+idle share), the decode, each multi-block path and each kernel, and
+prints:
 
 * the card's name and power limit, as nvidia-smi reports them;
 * one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -982,6 +991,215 @@ def check_host_runtime(data):
     return out, len(blocks), data.shape[0]
 
 
+def check_host_decode(comp, want):
+    """The native host block decode (``host/bzip2_decode.py``) on every
+    block of the bzip2 stream `comp`: the whole-block parse and symbol
+    decode, the inverse BWT and the RLE1 undo, each timed, and the bytes
+    checked against `want` and each block CRC; the first block also goes
+    through each numpy twin (the Python header parse and symbol loop, the
+    numpy LF orbit, the run loop of the RLE1 undo), which must agree.
+    Returns {entry: {'ms_per_call', 'calls', 'plain_ms'}}."""
+    from compressjs_tpu_torch import native
+    from compressjs_tpu_torch.host import bwt, rle1
+    from compressjs_tpu_torch.host import bzip2_decode as hd
+    from compressjs_tpu_torch.host import bzip2_parse as bp
+    from compressjs_tpu_torch.host.bits import WHOLEPI
+    from compressjs_tpu_torch.host.crc32 import crc32_bzip2
+    comp = np.frombuffer(comp, np.uint8)
+    r = bp._BitReader(comp)
+    dbuf_size = bp._start(r)
+    t = {name: {'ms': 0.0, 'calls': 0, 'plain_ms': None} for name in (
+        'cz_bz2_block_full', 'cz_inverse_bwt', 'cz_rle1_decode')}
+
+    def run(name, fn, twin, *args):
+        got, sec = timed(fn, *args)
+        t[name]['ms'] += sec * 1e3
+        t[name]['calls'] += 1
+        if twin is not None:
+            ref, psec = timed(twin, *args)
+            same = all(np.array_equal(a, b) for a, b in zip(got, ref)) \
+                if isinstance(got, tuple) else np.array_equal(got, ref)
+            if not same:
+                raise AssertionError('%s differs from its twin' % name)
+            t[name]['plain_ms'] = psec * 1e3
+        return got
+
+    def block_full_plain(data, pos, size):
+        rr = bp._BitReader(data)
+        rr.seek_bit(pos)
+        optr, s2b, sel, groups = bp._parse_block_header(rr, size)
+        dbuf = hd.decode_symbols_plain(rr, s2b, sel, groups, size)
+        return dbuf, optr, rr.pos
+
+    pieces = []
+    while r.read_bits(48) == WHOLEPI:
+        crc = r.read_bits(32)
+        first = not pieces
+        res = run('cz_bz2_block_full', native.bz2_block_full,
+                  block_full_plain if first else None, comp, r.pos,
+                  dbuf_size)
+        dbuf, optr, r.pos = res
+        packed = run('cz_inverse_bwt', bwt.inverse_bwt,
+                     bwt.inverse_bwt_plain if first else None, dbuf, optr)
+        out = run('cz_rle1_decode', rle1.rle1_decode,
+                  rle1.rle1_decode_plain if first else None, packed)
+        if crc32_bzip2(out) != crc:
+            raise AssertionError('host block decode: bad block CRC')
+        pieces.append(out.tobytes())
+    if b''.join(pieces) != want:
+        raise AssertionError('host block decode differs from bz2')
+    return {name: {'ms_per_call': e['ms'] / e['calls'], 'calls': e['calls'],
+                   'plain_ms_first_block': e['plain_ms']}
+            for name, e in t.items()}
+
+
+def run_counted(fn, *args, **kw):
+    """(fn(...), its wall seconds, the kernel launches it made), the
+    counts set to 0 just before and read just after, the card synced."""
+    from compressjs_tpu_torch.ops import _cuda
+    torch.cuda.synchronize()
+    for name in _cuda.launches:
+        _cuda.launches[name] = 0
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, dict(_cuda.launches)
+
+
+def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches):
+    """Phase "mesh (NCCL, 1 rank)": one NCCL process group of this
+    process alone (a FileStore in a temporary directory: no network),
+    `mesh_compress_bzip2` of sample5x4 against the golden with the main
+    encode's launches, `decompress_file_mesh` with host and with device
+    entropy (the latter with the main decode's launches),
+    `sharded_block_decode` of sample5x4's full-size blocks' BWT columns,
+    `sharded_block_encode` of those blocks (its int16 symbols through the
+    NCCL all-gather) against the native host BWT, MTF and RLE2, then one
+    warm timed call of each path.  Returns (launches by path,
+    timings)."""
+    import tempfile
+    import torch.distributed as dist
+    from compressjs_tpu_torch.host.bwt import bwtransform2
+    from compressjs_tpu_torch.host.mtf_rle2 import mtf_rle2
+    from compressjs_tpu_torch.parallel import mesh as pm
+    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    torch.cuda.set_device(0)
+    paths, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group('nccl', store=dist.FileStore(
+            os.path.join(tmp, 'store'), 1), rank=0, world_size=1)
+        try:
+            mesh = cz.make_mesh('cuda')
+            print('  %r, backend %s' % (mesh, dist.get_backend()))
+            out, wall, got = run_counted(cz.mesh_compress_bzip2, mesh, s5x4,
+                                         level=9)
+            paths['mesh_compress_bzip2'] = got
+            print('  mesh_compress_bzip2: %d -> %d bytes, %.3f s, launches '
+                  '%s' % (len(s5x4), len(out), wall, got))
+            if out != s5x4_comp:
+                raise AssertionError('mesh encode differs from the golden')
+            if got['mtf_scan'] != enc_launches['mtf_scan'] or \
+                    got['code_lengths'] != enc_launches['code_lengths']:
+                raise AssertionError('mesh encode launched %s, the main '
+                                     'encode %s' % (got, enc_launches))
+            for entropy in ('host', 'device'):
+                name = 'decompress_file_mesh_' + entropy
+                out, wall, got = run_counted(
+                    cz.decompress_file_mesh, s5x4_comp, mesh=mesh,
+                    entropy=entropy)
+                paths[name] = got
+                print('  %s: %.3f s, launches %s' % (name, wall, got))
+                if out != s5x4:
+                    raise AssertionError('%s differs from bz2' % name)
+                want = dec_launches if entropy == 'device' else \
+                    {k: 0 for k in got}
+                for k in ('compose_windowed', 'selector_chase', 'mtf_undo'):
+                    if got[k] != want[k]:
+                        raise AssertionError('%s launched %s, not %s'
+                                             % (name, got, want))
+            blocks = [b for b, _ in _split_blocks(
+                np.frombuffer(s5x4, np.uint8), 899981)
+                if b.shape[0] == 899981]
+            Us = np.zeros((len(blocks), 899981), np.uint8)
+            pidxs = [bwtransform2(b, Us[i], 899981)
+                     for i, b in enumerate(blocks)]
+            inv, wall, _ = run_counted(pm.sharded_block_decode, mesh, Us,
+                                       pidxs)
+            if not np.array_equal(inv.cpu().numpy(), np.stack(blocks)):
+                raise AssertionError('sharded_block_decode differs from '
+                                     'the blocks')
+            print('  sharded_block_decode of %d BWT columns of 899981 '
+                  'bytes: %.3f s, equal to the blocks' % (len(blocks), wall))
+            enc, wall, got = run_counted(pm.sharded_block_encode, mesh,
+                                         *pm.prepare_blocks(blocks))
+            paths['sharded_block_encode'] = got
+            pidx, syms, count, freq, _ = (t.cpu().numpy() for t in enc)
+            for i, b in enumerate(blocks):
+                alphabet = np.flatnonzero(np.bincount(b, minlength=256))
+                hs, hf = mtf_rle2(Us[i], alphabet.astype(np.uint8),
+                                  len(alphabet))
+                if pidx[i] != pidxs[i] or count[i] != len(hs) or \
+                        not np.array_equal(syms[i, :len(hs)], hs) or \
+                        not np.array_equal(freq[i, :len(hf)], hf) or \
+                        freq[i, len(hf):].any():
+                    raise AssertionError('sharded_block_encode of block %d '
+                                         'differs from the host encode' % i)
+            if got['mtf_scan'] < len(blocks):
+                raise AssertionError('sharded_block_encode launched %s'
+                                     % got)
+            print('  sharded_block_encode of the same %d blocks: %.3f s, '
+                  'syms %s, equal to the host BWT, MTF and RLE2; launches '
+                  '%s' % (len(blocks), wall, syms.dtype, got))
+            # one warm call of each path
+            for name, fn, args, kw, want in [
+                    ('mesh_compress_bzip2', cz.mesh_compress_bzip2,
+                     (mesh, s5x4), {'level': 9}, s5x4_comp),
+                    ('decompress_file_mesh_host', cz.decompress_file_mesh,
+                     (s5x4_comp,), {'mesh': mesh, 'entropy': 'host'}, s5x4),
+                    ('decompress_file_mesh_device', cz.decompress_file_mesh,
+                     (s5x4_comp,), {'mesh': mesh, 'entropy': 'device'},
+                     s5x4)]:
+                out, wall, _ = run_counted(fn, *args, **kw)
+                if out != want:
+                    raise AssertionError('timed %s differs' % name)
+                times[name] = wall
+        finally:
+            dist.destroy_process_group()
+    return paths, times
+
+
+def hetero_phase(cz, s5x4):
+    """Phase "hetero": sample5x4 tiled three times (29 -9 blocks), its
+    stream from `compress_file_device` as the reference, then
+    `hetero_compress_bzip2` with two host workers and the device worker,
+    which must equal it and must have encoded blocks on the card.
+    Returns (input, reference stream, launches, last_stats).  First
+    `warm_device`, the warm-up a caller makes before a timed run."""
+    from compressjs_tpu_torch.parallel import hetero
+    warm = hetero.warm_device(level=9, device='cuda')
+    if len(bz2.decompress(warm)) != 899981 + 4:
+        raise AssertionError('warm_device stream does not decode')
+    data = s5x4 * 3
+    ref = cz.compress_file_device(data, level=9, device='cuda')
+    if bz2.decompress(ref) != data:
+        raise AssertionError('the tiled input does not round-trip')
+    out, wall, got = run_counted(cz.hetero_compress_bzip2, data, level=9,
+                                 host_workers=2, device='cuda')
+    stats = dict(cz.hetero_compress_bzip2.last_stats)
+    print('  %d bytes -> %d bytes in %.3f s, last_stats %s, launches %s'
+          % (len(data), len(out), wall, stats, got))
+    if out != ref:
+        raise AssertionError('hetero stream differs from '
+                             'compress_file_device\'s')
+    if stats['device'] <= 0 or got['mtf_scan'] <= 0 \
+            or got['code_lengths'] <= 0:
+        raise AssertionError('the device worker encoded no block: %s %s'
+                             % (stats, got))
+    return data, ref, got, stats
+
+
 def busy_ms(events):
     """Union of the card's kernel intervals, in ms."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -1323,6 +1541,36 @@ def main():
         raise AssertionError('false-magic decode skipped a kernel: %s'
                              % c1_launches)
 
+    phase('mesh (NCCL, 1 rank)')
+    mesh_launches, new_times = mesh_phase(cz, s5x4, s5x4_comp, launches,
+                                          dec_launches)
+
+    phase('parallel host decode')
+    from compressjs_tpu_torch.parallel.decode import block_index
+    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    for name, stream, want in (('sample5', s5_comp, s5),
+                               ('sample5x4', s5x4_comp, s5x4)):
+        # the golden's streams hold no false block magic
+        starts = block_index(stream)
+        n_blocks = len(_split_blocks(np.frombuffer(want, np.uint8), 899981))
+        if len(starts) != n_blocks or starts[0] != 32:
+            raise AssertionError('block_index of %s: %s' % (name, starts))
+        out, wall, got = run_counted(cz.decompress_file_parallel, stream)
+        if out != want:
+            raise AssertionError('decompress_file_parallel of %s differs '
+                                 'from bz2' % name)
+        print('  %s: %d -> %d bytes in %.3f s, launches %s; block_index '
+              'finds its %d blocks' % (name, len(stream), len(out), wall,
+                                       got, len(starts)))
+    host_dec = check_host_decode(s5x4_comp, s5x4)
+    for name, e in host_dec.items():
+        print('  %-18s native %.4f ms x %d; numpy twin on the first block '
+              '%.4f ms (equal)' % (name, e['ms_per_call'], e['calls'],
+                                   e['plain_ms_first_block']))
+
+    phase('hetero')
+    het_data, het_ref, het_launches, het_stats = hetero_phase(cz, s5x4)
+
     phase('timing')
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -1361,17 +1609,59 @@ def main():
           'events %.3f s' % (wall, len(s5x4) / wall / 1e6,
                              t0.elapsed_time(t1) / 1e3))
 
-    # the probes are no kernel of the main path: their counts, read from
-    # the encode's and the decode's runs, show that neither launched one
+    # the new paths, one warm call each (the mesh's were timed in its
+    # phase, inside its process group)
+    host_cpu = native.build_info['cpu']
+    out, new_times['decompress_file_parallel'], _ = run_counted(
+        cz.decompress_file_parallel, s5x4_comp)
+    if out != s5x4:
+        raise AssertionError('timed decompress_file_parallel differs')
+    out, het_dev_wall, _ = run_counted(cz.compress_file_device, het_data,
+                                       level=9, device='cuda')
+    if out != het_ref:
+        raise AssertionError('timed compress_file_device of the tiled '
+                             'input differs')
+    out, new_times['hetero_compress_bzip2'], _ = run_counted(
+        cz.hetero_compress_bzip2, het_data, level=9, host_workers=2,
+        device='cuda')
+    if out != het_ref:
+        raise AssertionError('timed hetero encode differs')
+    het_timed_stats = dict(cz.hetero_compress_bzip2.last_stats)
+    for name, wall in new_times.items():
+        nbytes = len(het_data) if name.startswith('hetero') else len(s5x4)
+        print('  %s: wall %.4f s (%.3f MB/s of uncompressed bytes); %s; '
+              'host CPU %s' % (name, wall, nbytes / wall / 1e6, card,
+                               host_cpu))
+    print('  compress_file_device of the same %d bytes in this call: wall '
+          '%.4f s (%.3f MB/s); hetero last_stats %s'
+          % (len(het_data), het_dev_wall, len(het_data) / het_dev_wall / 1e6,
+             het_timed_stats))
+    new_times['compress_file_device_tiled'] = het_dev_wall
+
+    # every path driven with the counts set to 0 just before it: the main
+    # encode and decode and the new paths
+    path_launches = dict(mesh_launches, compress_file_device=launches,
+                         decompress_file_device=dec_launches,
+                         hetero_compress_bzip2=het_launches)
+
+    def total(name):
+        return sum(p[name] for p in path_launches.values())
+
+    def by_path(name):
+        return {k: p[name] for k, p in path_launches.items() if p[name]}
+
+    # the probes are no kernel of any path: their counts, read from the
+    # paths' runs, show that none launched one
     def probe_launches(name):
-        return launches[name] + dec_launches[name]
+        return total(name)
 
     kernels = [
         {'name': 'mtf_scan', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/mtf_scan.cu',
          'replaces': 'compressjs_tpu/ops/pallas_kernels.py:51 (with the '
                      'start tables of jax_kernels.py:365)',
-         'launches': launches['mtf_scan'],
+         'launches': total('mtf_scan'),
+         'launches_by_path': by_path('mtf_scan'),
          'launches_by_mode': {k: v['mtf_scan']
                               for k, v in mode_launches.items()},
          'max_abs_err': max(mtf_real['err'], mtf_rand['err'],
@@ -1390,7 +1680,8 @@ def main():
          'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
          'replaces': 'compressjs_tpu/ops/device_entropy.py:238 (with the '
                      'sort and scatter of code_lengths_batch :438)',
-         'launches': launches['code_lengths'],
+         'launches': total('code_lengths'),
+         'launches_by_path': by_path('code_lengths'),
          'launches_by_mode': {k: v['code_lengths']
                               for k, v in mode_launches.items()},
          'max_abs_err': build['err'], 'ms': build['ms'],
@@ -1403,14 +1694,15 @@ def main():
         {'name': 'alloc_lengths', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
          'replaces': 'compressjs_tpu/ops/device_entropy.py:238',
-         'launches': launches['alloc_lengths'], 'main_path': False,
+         'launches': total('alloc_lengths'), 'main_path': False,
          'max_abs_err': alloc[0], 'ms': alloc[1], 'plain_ms': alloc[3],
          'bound_ms': alloc[4], 'bound_by': alloc[5], 'library_ms': None,
          'wrapper_ms': alloc[2]},
         {'name': 'compose_windowed', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/compose_windowed.cu',
          'replaces': 'compressjs_tpu/ops/pallas_compose.py:61',
-         'launches': dec_launches['compose_windowed'],
+         'launches': total('compose_windowed'),
+         'launches_by_path': by_path('compose_windowed'),
          'max_abs_err': comp[0], 'ms': comp[1], 'plain_ms': comp[3],
          'bound_ms': comp[4], 'bound_by': comp[5], 'library_ms': comp[6],
          'cold_l2_ms': comp[7]},
@@ -1418,7 +1710,8 @@ def main():
          'source': 'compressjs_tpu_torch/csrc/selector_chase.cu',
          'replaces': 'compressjs_tpu/ops/device_huffman.py:291 (lax.scan, '
                      'no TPU kernel)',
-         'launches': dec_launches['selector_chase'],
+         'launches': total('selector_chase'),
+         'launches_by_path': by_path('selector_chase'),
          'max_abs_err': max(c['err'] for c in chases.values()),
          'ms': chase['ms'], 'plain_ms': chase['plain_ms'],
          'bound_ms': chase['bound_ms'], 'bound_by': chase['bound_by'],
@@ -1467,7 +1760,8 @@ def main():
          'source': 'compressjs_tpu_torch/csrc/mtf_undo.cu',
          'replaces': 'compressjs_tpu/ops/jax_kernels.py:617 (lax.scan, '
                      'no TPU kernel)',
-         'launches': dec_launches['mtf_undo'],
+         'launches': total('mtf_undo'),
+         'launches_by_path': by_path('mtf_undo'),
          'max_abs_err': max(undo_real['err'], undo_rand['err'],
                             undo_real['lists_err'], undo_rand['lists_err']),
          # the three launches of one stage, back to back
@@ -1483,6 +1777,10 @@ def main():
          'ptxas': {k: v for k, v in frames.items() if 'undo' in k}},
     ]
     print('encode modes: ' + json.dumps(mode_times))
+    print('new paths: ' + json.dumps({
+        'wall_s': new_times, 'hetero_last_stats': het_timed_stats,
+        'hetero_check_stats': het_stats, 'host_decode': host_dec,
+        'host_cpu': host_cpu}))
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -1,8 +1,10 @@
-"""The cyclic BWT on the host (counterpart of
-``compressjs_tpu.ops.bwt.bwtransform2``): the native runtime's
-two-stage rotation sort, and `cyclic_suffix_array`, numpy prefix
-doubling, as its plain twin.  The encoder's ``self_check`` holds the
-card's BWT against `bwtransform2`."""
+"""The cyclic BWT and its inverse on the host (counterparts of
+``compressjs_tpu.ops.bwt.bwtransform2`` and ``inverse_bwt_cyclic``): the
+native runtime's two-stage rotation sort and LF walk, and numpy twins of
+both (`cyclic_suffix_array`, prefix doubling; `inverse_bwt_plain`, the
+LF orbit by doubling).  The encoder's ``self_check`` holds the card's
+BWT against `bwtransform2`; the host block decode inverts with
+`inverse_bwt`."""
 
 from __future__ import annotations
 
@@ -59,3 +61,29 @@ def cyclic_suffix_array(T, n):
             break
         k <<= 1
     return np.lexsort((-idx, rank)).astype(np.int32)
+
+
+def inverse_bwt(U, pidx):
+    """Invert the cyclic BWT of the column U with origPtr pidx: the
+    native LF walk."""
+    return native.inverse_bwt(U, pidx)
+
+
+def inverse_bwt_plain(U, pidx):
+    """Plain twin of `inverse_bwt`: LF[i] = (bytes of U smaller than
+    U[i]) + (earlier positions holding U[i]); the orbit pidx, LF(pidx),
+    ... by doubling, read backwards."""
+    U = np.asarray(U, dtype=np.uint8)
+    n = U.shape[0]
+    if not 0 <= pidx < n:
+        raise ValueError('inverse_bwt: origPtr %d outside a block of %d '
+                         'bytes' % (pidx, n))
+    order = np.argsort(U, kind='stable')
+    lf = np.empty(n, dtype=np.int64)
+    lf[order] = np.arange(n)
+    seq = np.array([pidx], dtype=np.int64)
+    step = lf
+    while seq.shape[0] < n:
+        seq = np.concatenate([seq, step[seq[:n - seq.shape[0]]]])
+        step = step[step]
+    return U[seq][::-1].copy()

@@ -4,7 +4,9 @@ count byte 0-251).
 `rle1_encode` runs the native runtime's byte loop every time.
 `rle1_encode_plain` is its plain twin for the tests: the same
 semantics, including the lazy count-byte emission and its interaction
-with block-boundary cuts, as run-segmented numpy array math.
+with block-boundary cuts, as run-segmented numpy array math.  The undo,
+`rle1_decode`, is native too, with `rle1_decode_plain` (a copy of
+``compressjs_tpu.ops.rle.rle1_decode``) as its twin.
 """
 
 from __future__ import annotations
@@ -177,3 +179,39 @@ def _within_positions(lengths):
         return np.zeros(0, dtype=np.int64)
     ends = np.cumsum(lengths)
     return np.arange(total) - np.repeat(ends - lengths, lengths)
+
+
+def rle1_decode(block):
+    """Undo RLE1 on one block: after 4 equal bytes the next byte is a
+    count of more (the native loop).  A block of n bytes decodes to at
+    most 256 * n + 256."""
+    block = np.asarray(block, dtype=np.uint8)
+    return native.rle1_decode(block, block.shape[0] * 256 + 256)
+
+
+def rle1_decode_plain(block):
+    """Plain twin of `rle1_decode`, by runs: the only state carried from
+    one run to the next is whether a count byte is due, which takes the
+    first byte of the next run."""
+    block = np.asarray(block, dtype=np.uint8)
+    if block.shape[0] == 0:
+        return block.copy()
+    vals, lens = run_lengths(block)
+    if (lens < 4).all():
+        return block.copy()
+    out = []
+    pending = -1          # the value whose count byte comes next
+    for v, m in zip(vals.tolist(), lens.tolist()):
+        if pending >= 0:
+            out.append(np.full(v, pending, dtype=np.uint8))
+            m -= 1
+            pending = -1
+            if m == 0:
+                continue
+        # within a run: groups of 4 literals and a count byte equal to v
+        full_groups, tail = divmod(m, 5)
+        out.append(np.full(full_groups * (4 + v), v, dtype=np.uint8))
+        out.append(np.full(tail, v, dtype=np.uint8))
+        if tail == 4:
+            pending = v
+    return np.concatenate(out)

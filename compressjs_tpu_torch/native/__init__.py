@@ -47,8 +47,9 @@ def _ptr(dtype):
     return np.ctypeslib.ndpointer(dtype=dtype, flags='C_CONTIGUOUS')
 
 
-_p_u8, _p_u16, _p_u32, _p_i64 = (_ptr(np.uint8), _ptr(np.uint16),
-                                 _ptr(np.uint32), _ptr(np.int64))
+_p_u8, _p_u16, _p_u32, _p_i32, _p_i64 = (
+    _ptr(np.uint8), _ptr(np.uint16), _ptr(np.uint32), _ptr(np.int32),
+    _ptr(np.int64))
 
 
 def cpu_model():
@@ -133,6 +134,17 @@ def _bind(lib):
     lib.cz_rle1_encode.argtypes = [_p_u8, _i64, _i64, _p_u8,
                                    ctypes.POINTER(_i64)]
     lib.cz_rle1_encode.restype = _i64
+    lib.cz_bz2_decode_block.argtypes = [
+        _p_u8, _i64, ctypes.POINTER(_i64), _p_u8, _i64, _p_i32, _p_i32,
+        _p_i64, _p_i64, _p_i32, _i32, _p_u8, _p_u8, _i64]
+    lib.cz_bz2_decode_block.restype = _i64
+    lib.cz_bz2_block_full.argtypes = [_p_u8, _i64, ctypes.POINTER(_i64),
+                                      _i64, _p_u8, ctypes.POINTER(_i64)]
+    lib.cz_bz2_block_full.restype = _i64
+    lib.cz_inverse_bwt.argtypes = [_p_u8, _i64, _i64, _p_u8]
+    lib.cz_inverse_bwt.restype = None
+    lib.cz_rle1_decode.argtypes = [_p_u8, _i64, _p_u8, _i64]
+    lib.cz_rle1_decode.restype = _i64
     return lib
 
 
@@ -268,3 +280,84 @@ def bwt_cyclic(T):
     U = np.empty(n, dtype=np.uint8)
     pidx = lib().cz_bwt_cyclic(T, U, n)
     return U, int(pidx)
+
+
+# the decode tables' row widths in core.cpp: limit, base and permute of
+# each Huffman group
+_LIMIT_W, _BASE_W, _PERM_W = 25, 22, 258
+
+
+def bz2_decode_block(data, bitpos, selectors, minlen, maxlen, limit, base,
+                     permute, sym_total, sym_to_byte, dbuf_size):
+    """The symbol decode of one block (Huffman walk, RLE2 and MTF undo)
+    from bit `bitpos` of `data`, with the block's selectors and its
+    groups' decode tables (minlen, maxlen (G,), limit (G, 25), base
+    (G, 22), permute (G, 258)).  Returns (the BWT column, the bit after
+    its EOB code); raises ValueError on a data error."""
+    data, selectors, sym_to_byte = _u8(data), _u8(selectors), _u8(sym_to_byte)
+    minlen = np.ascontiguousarray(minlen, dtype=np.int32)
+    maxlen = np.ascontiguousarray(maxlen, dtype=np.int32)
+    limit = np.ascontiguousarray(limit, dtype=np.int64)
+    base = np.ascontiguousarray(base, dtype=np.int64)
+    permute = np.ascontiguousarray(permute, dtype=np.int32)
+    g = minlen.shape[0]
+    if (maxlen.shape != (g,) or limit.shape != (g, _LIMIT_W)
+            or base.shape != (g, _BASE_W) or permute.shape != (g, _PERM_W)
+            or not 1 <= g <= 6):
+        raise ValueError('bz2_decode_block: tables of %d groups do not '
+                         'match in shape' % g)
+    if g and not ((1 <= minlen) & (minlen <= maxlen)
+                  & (maxlen <= MAX_HUFCODE_BITS)).all():
+        raise ValueError('bz2_decode_block: code lengths out of range')
+    if selectors.shape[0] and int(selectors.max()) >= g:
+        raise ValueError('a selector names no table')
+    if sym_to_byte.shape[0] != 256 or not 0 <= sym_total <= 256:
+        raise ValueError('bz2_decode_block: bad symbol map')
+    dbuf = np.empty(dbuf_size, dtype=np.uint8)
+    pos = _i64(bitpos)
+    count = lib().cz_bz2_decode_block(
+        data, data.shape[0], ctypes.byref(pos), selectors,
+        selectors.shape[0], minlen, maxlen, limit, base, permute, sym_total,
+        sym_to_byte, dbuf, dbuf_size)
+    if count < 0:
+        raise ValueError('Data error')
+    return dbuf[:count], int(pos.value)
+
+
+def bz2_block_full(data, bitpos, dbuf_size):
+    """Parse and symbol-decode one block from bit `bitpos` of `data`, the
+    bit after its magic and CRC.  Returns (the BWT column, origPtr, the
+    bit after its EOB code), or None on any anomaly: the caller then
+    parses the block again in Python, which reproduces the reference's
+    own errors and its acceptance of degenerate blocks."""
+    data = _u8(data)
+    dbuf = np.empty(dbuf_size, dtype=np.uint8)
+    pos = _i64(bitpos)
+    optr = _i64(0)
+    count = lib().cz_bz2_block_full(data, data.shape[0], ctypes.byref(pos),
+                                    dbuf_size, dbuf, ctypes.byref(optr))
+    if count < 0:
+        return None
+    return dbuf[:count], int(optr.value), int(pos.value)
+
+
+def inverse_bwt(U, pidx):
+    """Invert the cyclic BWT of U with origPtr pidx (0 <= pidx < len(U))."""
+    U = _u8(U)
+    if not 0 <= pidx < U.shape[0]:
+        raise ValueError('inverse_bwt: origPtr %d outside a block of %d '
+                         'bytes' % (pidx, U.shape[0]))
+    out = np.empty(U.shape[0], dtype=np.uint8)
+    lib().cz_inverse_bwt(U, U.shape[0], pidx, out)
+    return out
+
+
+def rle1_decode(block, out_cap):
+    """Undo RLE1 (after 4 equal bytes the next byte is a count of more)
+    into at most out_cap bytes; raises ValueError past it."""
+    block = _u8(block)
+    out = np.empty(out_cap, dtype=np.uint8)
+    n = lib().cz_rle1_decode(block, block.shape[0], out, out_cap)
+    if n < 0:
+        raise ValueError('RLE1 output overflow')
+    return out[:n]

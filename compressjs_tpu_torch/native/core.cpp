@@ -1,12 +1,14 @@
 // Native host runtime of compressjs_tpu_torch: the sequential host stages
 // of the bzip2 encode that the `core` and `hybrid` splits run beside the
-// card, and the host cyclic BWT that `self_check` holds the card against.
+// card, the host cyclic BWT that `self_check` holds the card against, and
+// the host block decode of the parallel and mesh decoders.
 //
 // Copied from the JAX package's native runtime, with only what this
 // package calls: the SA-IS and two-stage suffix sorters, the
 // length-limited Huffman allocator, and the exports cz_huff_code_lengths,
 // cz_selector_mtf, cz_bwt_cyclic, cz_mtf_rle2, cz_group_costs,
-// cz_chunk_freqs, cz_payload_pack and cz_rle1_encode.  Built by g++ at
+// cz_chunk_freqs, cz_payload_pack, cz_rle1_encode, cz_bz2_decode_block,
+// cz_bz2_block_full, cz_inverse_bwt and cz_rle1_decode.  Built by g++ at
 // first use and loaded with ctypes (native/__init__.py).
 
 #include <cstdint>
@@ -909,5 +911,354 @@ int64_t cz_rle1_encode(const uint8_t* in, int64_t avail, int64_t block_size,
   *consumed_io = i;
   return pos;
 }
+
+// bzip2 hot decode loop: canonical-Huffman symbol walk + MTF + RLE2 undo.
+// Bit source: data/bitpos (MSB-first).  Tables are per group:
+//   minlen/maxlen: int32[ngroups]
+//   limit:  int64[ngroups][25]
+//   base:   int64[ngroups][22]
+//   permute:int32[ngroups][258]
+// Returns dbuf_count (>=0) or -1 on data error.  *bitpos_io is updated.
+int64_t cz_bz2_decode_block(const uint8_t* data, int64_t data_len,
+                            int64_t* bitpos_io,
+                            const uint8_t* selectors, int64_t nsel,
+                            const int32_t* minlen, const int32_t* maxlen,
+                            const int64_t* limit, const int64_t* base,
+                            const int32_t* permute,
+                            int32_t sym_total, const uint8_t* sym_to_byte,
+                            uint8_t* dbuf, int64_t dbuf_size) {
+  int64_t bitpos = *bitpos_io;
+  int64_t total_bits = data_len * 8;
+  // bit reader: 64-bit cache
+  uint64_t cache = 0;
+  int cached = 0;
+  int64_t bytep = bitpos >> 3;
+  int skip = (int)(bitpos & 7);
+  auto refill = [&](int need) {
+    while (cached < need) {
+      uint64_t b = bytep < data_len ? data[bytep] : 0;
+      bytep++;
+      cache = (cache << 8) | b;
+      cached += 8;
+    }
+  };
+  if (skip) { refill(skip); cached -= skip; }
+  auto read_bits = [&](int nb) -> int64_t {
+    refill(nb);
+    cached -= nb;
+    return (int64_t)((cache >> cached) & ((1ULL << nb) - 1));
+  };
+
+  uint8_t mtf[256];
+  for (int i = 0; i < 256; i++) mtf[i] = (uint8_t)i;
+  int64_t dbuf_count = 0;
+  int64_t run_pos = 0, t_acc = 0;
+  int64_t selector_idx = 0;
+  int sym_budget = 0;
+  const int64_t* glimit = nullptr;
+  const int64_t* gbase = nullptr;
+  const int32_t* gperm = nullptr;
+  int gmin = 0, gmax = 0;
+
+  // per-group decode LUT over the first LUT_BITS code bits:
+  // entry = (symbol << 5) | code length, 0xFFFF = longer code (walk).
+  // Typical bzip2 codes are <= 11 bits, so ~99% of symbols decode with
+  // one peek+lookup instead of a bit-by-bit limit walk.
+  constexpr int LUT_BITS = 11;
+  static_assert(LUT_BITS <= 15, "length field needs 5 bits");
+  uint16_t lut[6][1 << LUT_BITS];
+  int lut_bits[6];
+  bool lut_ok[6] = {false, false, false, false, false, false};
+  auto build_lut = [&](int g) {
+    const int64_t* lim = limit + g * 25;
+    const int64_t* bas = base + g * 22;
+    const int32_t* perm = permute + g * 258;
+    int L = std::min(LUT_BITS, maxlen[g]);
+    lut_bits[g] = L;
+    uint16_t* t = lut[g];
+    std::fill(t, t + (1 << LUT_BITS), (uint16_t)0xFFFF);
+    int64_t lo = 0;  // first code value of the current length
+    for (int l = minlen[g]; l <= maxlen[g] && l <= L; l++) {
+      // clamp to the code space of length l: an over-subscribed
+      // (Kraft > 1) table from corrupt input may claim lim[l] >= 2^l,
+      // which would index past the table; clamped codes stay 0xFFFF
+      // and fall to the walk path, which bounds-checks and errors
+      int64_t hi = std::min(lim[l], ((int64_t)1 << l) - 1);
+      for (int64_t j = lo; j <= hi; j++) {
+        int64_t idx = j - bas[l];
+        if (idx < 0 || idx >= 258) continue;  // corrupt table: walk path
+        uint16_t v = (uint16_t)((perm[idx] << 5) | l);
+        int shift = L - l;
+        for (int64_t e = j << shift; e < ((j + 1) << shift); e++)
+          t[e] = v;
+      }
+      lo = (lim[l] + 1) << 1;
+    }
+    lut_ok[g] = true;
+  };
+  const uint16_t* glut = nullptr;
+  int gL = 0;
+
+  for (;;) {
+    if (!sym_budget) {
+      sym_budget = 50;
+      if (selector_idx >= nsel) return -1;
+      int g = selectors[selector_idx++];
+      glimit = limit + g * 25;
+      gbase = base + g * 22;
+      gperm = permute + g * 258;
+      gmin = minlen[g];
+      gmax = maxlen[g];
+      if (g < 6) {
+        if (!lut_ok[g]) build_lut(g);
+        glut = lut[g];
+        gL = lut_bits[g];
+      } else {
+        glut = nullptr;  // defensive: >6 groups is invalid bzip2
+      }
+    }
+    sym_budget--;
+    int32_t next_sym;
+    uint16_t v = 0xFFFF;
+    if (glut) {
+      refill(gL);
+      uint32_t peek =
+          (uint32_t)((cache >> (cached - gL)) & ((1u << gL) - 1));
+      v = glut[peek];
+    }
+    if (v != 0xFFFF) {
+      cached -= (int)(v & 31);
+      next_sym = v >> 5;
+    } else {
+      int i = gmin;
+      int64_t j = read_bits(i);
+      while (j > glimit[i]) {
+        i++;
+        if (i > gmax) return -1;
+        j = (j << 1) | read_bits(1);
+      }
+      j -= gbase[i];
+      if (j < 0 || j >= 258) return -1;
+      next_sym = gperm[j];
+    }
+    if (next_sym <= 1) {  // RUNA / RUNB
+      if (!run_pos) { run_pos = 1; t_acc = 0; }
+      t_acc += (next_sym == 0) ? run_pos : 2 * run_pos;
+      run_pos <<= 1;
+      if (t_acc > dbuf_size) return -1;  // also preempts int64 wrap of
+                                         // run_pos/t_acc on crafted
+                                         // 60+-symbol run codes
+      continue;
+    }
+    if (run_pos) {
+      run_pos = 0;
+      if (dbuf_count + t_acc > dbuf_size) return -1;
+      uint8_t uc = sym_to_byte[mtf[0]];
+      std::memset(dbuf + dbuf_count, uc, t_acc);
+      dbuf_count += t_acc;
+    }
+    if (next_sym > sym_total) break;  // EOB
+    if (dbuf_count >= dbuf_size) return -1;
+    int32_t jj = next_sym - 1;
+    uint8_t uc = mtf[jj];
+    std::memmove(mtf + 1, mtf, jj);
+    mtf[0] = uc;
+    uc = sym_to_byte[uc];
+    dbuf[dbuf_count++] = uc;
+    (void)total_bits;
+  }
+  *bitpos_io = (bytep << 3) - cached;
+  return dbuf_count;
+}
+
+// Full-native bzip2 block parse + decode: everything after the 48-bit
+// block magic and 32-bit CRC (randomized bit, origPtr, symbol bitmap,
+// unary+MTF selectors, delta-coded length tables -> permute/base/limit,
+// then the symbol decode via cz_bz2_decode_block).  Returns the dbuf
+// count, or -1 on ANY anomaly — the Python caller then re-parses on its
+// own path so that error behavior (and acceptance of degenerate blocks)
+// stays byte-for-byte identical to the reference.
+int64_t cz_bz2_block_full(const uint8_t* data, int64_t data_len,
+                          int64_t* bitpos_io, int64_t dbuf_size,
+                          uint8_t* dbuf, int64_t* orig_ptr_out) {
+  int64_t pos = *bitpos_io;
+  int64_t total_bits = data_len * 8;
+  auto read_bits = [&](int nb) -> int64_t {
+    int64_t v = 0;
+    for (int k = 0; k < nb; k++) {
+      int64_t p = pos + k;
+      int bit = p < total_bits
+          ? (data[p >> 3] >> (7 - (p & 7))) & 1 : 0;
+      v = (v << 1) | bit;
+    }
+    pos += nb;
+    return v;
+  };
+
+  if (read_bits(1)) return -1;  // randomized: obsolete format
+  int64_t orig_pointer = read_bits(24);
+  if (orig_pointer > dbuf_size) return -1;
+
+  // symbol bitmap
+  uint8_t sym_to_byte[256];
+  int32_t sym_total = 0;
+  {
+    int64_t t = read_bits(16);
+    for (int i = 0; i < 16; i++) {
+      if (t & ((int64_t)1 << (15 - i))) {
+        int64_t k = read_bits(16);
+        for (int j = 0; j < 16; j++)
+          if (k & ((int64_t)1 << (15 - j)))
+            sym_to_byte[sym_total++] = (uint8_t)((i << 4) | j);
+      }
+    }
+  }
+  if (sym_total == 0) return -1;
+  int32_t sym_count = sym_total + 2;
+
+  int32_t group_count = (int32_t)read_bits(3);
+  if (group_count < 2 || group_count > 6) return -1;
+  int64_t n_selectors = read_bits(15);
+  if (n_selectors == 0) return -1;
+
+  // selectors: unary + MTF
+  std::vector<uint8_t> selectors(n_selectors);
+  {
+    uint8_t lst[6];
+    for (int i = 0; i < group_count; i++) lst[i] = (uint8_t)i;
+    for (int64_t s = 0; s < n_selectors; s++) {
+      int j = 0;
+      while (read_bits(1)) {
+        j++;
+        if (j >= group_count) return -1;
+      }
+      uint8_t v = lst[j];
+      for (int t = j; t > 0; t--) lst[t] = lst[t - 1];
+      lst[0] = v;
+      selectors[s] = v;
+    }
+  }
+
+  // delta-coded length tables -> permute/base/limit (Bzip2.js:226-275)
+  int32_t minlen[6], maxlen[6];
+  std::vector<int64_t> limit(6 * 25, 0), base(6 * 22, 0);
+  std::vector<int32_t> permute(6 * 258, 0);
+  for (int g = 0; g < group_count; g++) {
+    int32_t lengths[258];
+    int64_t t = read_bits(5);
+    for (int32_t i = 0; i < sym_count; i++) {
+      for (;;) {
+        if (t < 1 || t > 20) return -1;
+        if (!read_bits(1)) break;
+        if (!read_bits(1)) t++;
+        else t--;
+      }
+      lengths[i] = (int32_t)t;
+    }
+    int32_t mn = lengths[0], mx = lengths[0];
+    for (int32_t i = 1; i < sym_count; i++) {
+      mn = std::min(mn, lengths[i]);
+      mx = std::max(mx, lengths[i]);
+    }
+    minlen[g] = mn;
+    maxlen[g] = mx;
+    int32_t* perm = permute.data() + g * 258;
+    int64_t* lim = limit.data() + g * 25;
+    int64_t* bas = base.data() + g * 22;
+    int32_t pp = 0;
+    for (int32_t l = mn; l <= mx; l++)
+      for (int32_t i = 0; i < sym_count; i++)
+        if (lengths[i] == l) perm[pp++] = i;
+    int64_t temp[21] = {0};
+    for (int32_t i = 0; i < sym_count; i++) temp[lengths[i]]++;
+    int64_t acc = 0, tt = 0;
+    for (int32_t l = mn; l < mx; l++) {
+      acc += temp[l];
+      lim[l] = acc - 1;
+      acc <<= 1;
+      tt += temp[l];
+      bas[l + 1] = acc - tt;
+    }
+    lim[mx] = acc + temp[mx] - 1;
+    if (mx + 1 < 25) lim[mx + 1] = INT64_MAX;
+    bas[mn] = 0;
+  }
+
+  int64_t count = cz_bz2_decode_block(
+      data, data_len, &pos, selectors.data(), n_selectors,
+      minlen, maxlen, limit.data(), base.data(), permute.data(),
+      sym_total, sym_to_byte, dbuf, dbuf_size);
+  if (count < 0) return -1;
+  if (orig_pointer >= count) return -1;
+  *orig_ptr_out = orig_pointer;
+  *bitpos_io = pos;
+  return count;
+}
+
+// Fused MTF + RLE2: BWT column -> bzip2 symbol stream (zero runs as
+// bijective base-2 RUNA/RUNB digits, literal j -> j+1, EOB appended) with
+
+// Inverse cyclic BWT: fill out[0..n) from BWT column U and pidx.
+void cz_inverse_bwt(const uint8_t* U, int64_t n, int64_t pidx,
+                    uint8_t* out) {
+  if (n < (int64_t)1 << 24) {
+    // pack (LF target << 8 | byte) into one uint32 so the walk makes a
+    // single random access per step over a half-size table (blocks are
+    // <= 900059 bytes, so LF always fits 24 bits)
+    std::vector<uint32_t> lf(n);
+    uint32_t cnt[256] = {0};
+    for (int64_t i = 0; i < n; i++)
+      lf[i] = (cnt[U[i]]++ << 8) | U[i];
+    uint32_t starts[256];
+    uint32_t sum = 0;
+    for (int c = 0; c < 256; c++) { starts[c] = sum; sum += cnt[c]; }
+    for (int64_t i = 0; i < n; i++) lf[i] += starts[U[i]] << 8;
+    uint32_t t = (uint32_t)pidx;
+    for (int64_t i = n - 1; i >= 0; i--) {
+      uint32_t v = lf[t];
+      out[i] = (uint8_t)v;
+      t = v >> 8;
+    }
+    return;
+  }
+  std::vector<int64_t> lf(n);
+  int64_t cnt[256] = {0};
+  for (int64_t i = 0; i < n; i++) lf[i] = cnt[U[i]]++;
+  int64_t starts[256];
+  int64_t sum = 0;
+  for (int c = 0; c < 256; c++) { starts[c] = sum; sum += cnt[c]; }
+  for (int64_t i = 0; i < n; i++) lf[i] += starts[U[i]];
+  int64_t t = pidx;
+  for (int64_t i = n - 1; i >= 0; i--) {
+    out[i] = U[t];
+    t = lf[t];
+  }
+}
+
+// RLE1 decode: after 4 equal bytes the next byte is an extras count.
+// Returns output length, or -1 if out_cap exceeded.
+int64_t cz_rle1_decode(const uint8_t* in, int64_t n, uint8_t* out,
+                       int64_t out_cap) {
+  int64_t o = 0;
+  int64_t i = 0;
+  while (i < n) {
+    uint8_t c = in[i];
+    int64_t run = 1;
+    while (i + run < n && run < 4 && in[i + run] == c) run++;
+    if (o + run > out_cap) return -1;
+    std::memset(out + o, c, run);
+    o += run;
+    i += run;
+    if (run == 4) {
+      int64_t extra = (i < n) ? in[i] : 0;
+      if (i < n) i++;
+      if (o + extra > out_cap) return -1;
+      std::memset(out + o, c, extra);
+      o += extra;
+    }
+  }
+  return o;
+}
+
 
 }  // extern "C"

@@ -237,6 +237,12 @@ def inverse_bwt_block_masked(U, cap, n, pidx):
     return torch.where(valid, period[src], 0).to(U.dtype)
 
 
+def inverse_bwt_block(U, n, pidx):
+    """Invert the cyclic BWT of U[:n] with origPtr pidx < n: uint8[n]
+    (counterpart of ``jax_kernels.inverse_bwt_block``)."""
+    return inverse_bwt_block_masked(U, n, n, pidx)
+
+
 _F_EQ = (1, 2, 3, 4, 0)   # RLE1 state after a byte equal to the last
 _F_NE = (1, 1, 1, 1, 0)   # ... after a different byte
 

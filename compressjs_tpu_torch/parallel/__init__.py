@@ -1,1 +1,3 @@
-"""The stream-level encoder that drives the device block encode."""
+"""The stream-level encoders and decoders: one card (``pipeline``,
+``decode``), host workers beside the card (``hetero``) and data
+parallelism over blocks with ``torch.distributed`` (``mesh``)."""

@@ -1,32 +1,51 @@
-"""bzip2 decoder with every block's decode on the GPU (counterpart of
-``compressjs_tpu.parallel.decode.decompress_file_mesh`` with
-``entropy='device'``, on one card).
+"""bzip2 decoders that decode a stream's blocks in parallel (counterparts
+of ``compressjs_tpu.parallel.decode``).
 
-The host scans the stream for the 48-bit block magic at every bit
-alignment and parses each candidate block's small header; the device
-runs the parallel Huffman walk, RLE2 and MTF undo of every candidate
-(all launched before any is read back), and then, for the blocks that
-chain bit-exactly from the first to the end-of-stream magic, the
-inverse BWT and RLE1 undo.  The host checks each block's CRC and the
-stream CRC.  A payload may hold either magic's bit pattern: a false
-block magic makes the block before it retry with a wider bound, and a
-false end magic makes the chain go on to the next end hit.  There is no
-host decoder to fall back to: a stream that does not decode raises
-``ValueError``.
+All three scan the stream for the 48-bit block magic at every bit
+alignment, decode every candidate block on its own, and keep the blocks
+that chain bit-exactly from the first block to an end-of-stream magic
+whose stream CRC matches; candidates off the chain (a magic's bit
+pattern inside a payload, blocks appended after the end magic) are
+skipped.  A payload may hold either magic's pattern: a false block magic
+makes the device decode of the block before it retry with a wider
+bound, and a false end magic makes the chain go on to the next end hit.
+
+* `decompress_file_device`: every block's decode on one card -- the
+  host parses each candidate's small header; the card runs the parallel
+  Huffman walk, RLE2 and MTF undo of every candidate (all launched
+  before any is read back), then the inverse BWT and RLE1 undo of the
+  chained blocks.
+* `decompress_file_mesh`: the symbol decode on a host thread pool
+  (``entropy='host'``, the native block decoder) or on the card
+  (``'device'``, as `decompress_file_device`), then the inverse BWTs
+  sharded over a `parallel.mesh.Mesh` and the RLE1 undo on the host.
+* `decompress_file_parallel`: whole blocks on a host thread (or
+  process) pool with the native block decoder; nothing on the card.
+
+There is no sequential decoder to fall back to: a stream that does not
+decode raises ``ValueError`` where the JAX decoders hand it to their
+sequential decoder.
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+import os
 
 import numpy as np
 import torch
 
 from ..convert import decode_tables
 from ..host.bits import SQRTPI, WHOLEPI
-from ..host.bzip2_parse import (_BitReader, _parse_block_header,
-                                _parse_candidates, _pow2_at_least, _start)
+from ..host.bzip2_decode import _decode_one_block, _read_block_header
+from ..host.bzip2_parse import (MAGIC_BYTES, _BitReader, _parse_block_header,
+                                _parse_candidates, _pow2_at_least,
+                                _scan_magic, _start)
 from ..host.crc32 import crc32_bzip2, stream_crc_combine
+from ..host.rle1 import rle1_decode
 from ..ops.device_huffman import MAX_CODE_BITS, block_bytes, bwt_column, \
     huffman_walk_dev, tables_for_device
+from .mesh import make_mesh, sharded_ragged_inverse_bwt
 
 # The most bits a block takes from its magic to the end of its EOB code.
 # The header: magic 48, block CRC 32, randomised flag 1, origPtr 24,
@@ -123,6 +142,19 @@ def _empty_stream(data):
     return b''
 
 
+def _as_stream(data):
+    return np.frombuffer(bytes(data), dtype=np.uint8) \
+        if not isinstance(data, np.ndarray) \
+        else np.ascontiguousarray(data, dtype=np.uint8)
+
+
+def _emit(result, output):
+    if output is None:
+        return result
+    output.write(result)
+    return output
+
+
 def decompress_file_device(data, output=None, device='cuda'):
     """Decode the bzip2 stream `data` (bytes-like or uint8 array) with
     every block's decode on `device` ('cuda' unless the caller asks for
@@ -134,18 +166,22 @@ def decompress_file_device(data, output=None, device='cuda'):
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('decompress_file_device: CUDA is not available; '
                            "pass device='cpu' to run on the CPU")
-    data = np.frombuffer(bytes(data), dtype=np.uint8) \
-        if not isinstance(data, np.ndarray) \
-        else np.ascontiguousarray(data, dtype=np.uint8)
+    data = _as_stream(data)
     parsed = _parse_candidates(data)
     if parsed is None:
-        result = _empty_stream(data)
-    else:
-        result = _decode_chain(data, *parsed, device)
-    if output is None:
-        return result
-    output.write(result)
-    return output
+        return _emit(_empty_stream(data), output)
+    dbuf_size, first_block_pos, candidates, end_hits = parsed
+    chain, end = _chain(
+        first_block_pos, candidates, end_hits,
+        lambda cands, bound: _decode_window(data, cands, bound, dbuf_size,
+                                            device))
+    pieces = []
+    for U, orig_ptr, target_crc, _ in chain:
+        n = U.shape[0]
+        out, _ = block_bytes(U, n, n, orig_ptr)
+        pieces.append(_checked(out.cpu().numpy(), target_crc))
+    _check_stream_crc(data, end, [res[2] for res in chain])
+    return _emit(b''.join(pieces), output)
 
 
 def _decode_window(data, cands, end, dbuf_size, device):
@@ -176,25 +212,36 @@ def _decode_window(data, cands, end, dbuf_size, device):
     return by_pos
 
 
-def _decode_chain(data, dbuf_size, first_block_pos, candidates, end_hits,
-                  device):
-    """Chain the blocks bit-exactly from the first block to an end hit.
-    The chain is built against the first end hit; where it stops short
-    of an end hit, that end hit was a false one inside the payload of
-    the block at the stop, so the blocks from there are decoded again
-    against the next end hit.  Blocks already chained are kept."""
+def _host_window(decode_all):
+    """A window decoder for `_chain` from `decode_all(cands)`, which
+    returns each candidate's result (its end bit last) or None."""
+    def window(cands, end):
+        return {p: r for p, r in zip(cands, decode_all(cands))
+                if r is not None and r[-1] > p}
+    return window
+
+
+def _chain(first_block_pos, candidates, end_hits, decode_window):
+    """Chain the blocks bit-exactly from the first block to an end hit:
+    (the chained results, the end hit's bit position).
+    `decode_window(cands, end)` decodes the candidates `cands`, which lie
+    before the end hit `end`, to {bit position: result}, each result's
+    last element the bit after its block.  The chain is built against the
+    first end hit; where it stops short of an end hit, that end hit was a
+    false one inside the payload of the block at the stop, so the
+    candidates from there are decoded again against the next end hit.
+    Blocks already chained are kept."""
     ends = set(end_hits)
     chain = []
     pos = first_block_pos
     for end in end_hits:
         if end <= pos:
             continue
-        by_pos = _decode_window(
-            data, [p for p in candidates if pos <= p < end], end,
-            dbuf_size, device)
+        by_pos = decode_window([p for p in candidates if pos <= p < end],
+                               end)
         while pos in by_pos:
             chain.append(by_pos.pop(pos))
-            pos = chain[-1][3]
+            pos = chain[-1][-1]
         if pos in ends:
             break
     if not chain:
@@ -202,23 +249,172 @@ def _decode_chain(data, dbuf_size, first_block_pos, candidates, end_hits,
     if pos not in ends:
         raise ValueError('block chain does not end at the end-of-stream '
                          'magic')
+    return chain, pos
 
-    pieces = []
+
+def _checked(piece, target_crc):
+    """A decoded block's bytes, after its CRC check."""
+    crc = crc32_bzip2(piece)
+    if crc != target_crc:
+        raise ValueError('bad block CRC (got %x expected %x)'
+                         % (crc, target_crc))
+    return piece.tobytes()
+
+
+def _check_stream_crc(data, end, crcs):
+    """The stream CRC after the end magic at bit `end` must combine the
+    chained blocks' CRCs `crcs`."""
     stream_crc = 0
-    for U, orig_ptr, target_crc, _ in chain:
-        n = U.shape[0]
-        out, _ = block_bytes(U, n, n, orig_ptr)
-        piece = out.cpu().numpy()
-        crc = crc32_bzip2(piece)
-        if crc != target_crc:
-            raise ValueError('bad block CRC (got %x expected %x)'
-                             % (crc, target_crc))
-        pieces.append(piece.tobytes())
-        stream_crc = stream_crc_combine(stream_crc, target_crc)
+    for crc in crcs:
+        stream_crc = stream_crc_combine(stream_crc, crc)
     rr = _BitReader(data)
-    rr.seek_bit(pos + 48)
+    rr.seek_bit(end + 48)
     target = rr.read_bits(32)
     if target != stream_crc:
         raise ValueError('bad stream CRC (got %x expected %x)'
                          % (stream_crc, target))
-    return b''.join(pieces)
+
+
+def block_index(data):
+    """Every bit position of the block magic in `data`: the candidate
+    block starts (each points at the magic itself)."""
+    return _scan_magic(_as_stream(data), MAGIC_BYTES)
+
+
+def _parse_at(data, pos, dbuf_size):
+    """Parse and symbol-decode the candidate block at bit `pos` on the
+    host: (BWT column, origPtr, block CRC, the bit after the block), or
+    None where it does not decode."""
+    rr = _BitReader(data)
+    rr.seek_bit(pos)
+    try:
+        res = _read_block_header(rr, dbuf_size)
+    except ValueError:
+        return None
+    if res is None:
+        return None
+    return res + (rr.tell_bit(),)
+
+
+def _decode_at(data, pos, dbuf_size):
+    """Decode the candidate block at bit `pos` on the host to its bytes:
+    (bytes, block CRC, the bit after the block), or None where it does
+    not decode (or its block CRC does not match)."""
+    rr = _BitReader(data)
+    rr.seek_bit(pos)
+    try:
+        res = _decode_one_block(rr, dbuf_size)
+    except ValueError:
+        return None
+    if res is None:
+        return None
+    out, crc = res
+    return out, crc, rr.tell_bit()
+
+
+_FORK_DATA = {}
+
+
+def _decode_at_fork(args):
+    key, pos, dbuf_size = args
+    return _decode_at(_FORK_DATA[key], pos, dbuf_size)
+
+
+def _default_workers():
+    # oversubscribed: the native LF walk waits on memory, so extra
+    # threads hide its stalls
+    return min(8, 2 * (os.cpu_count() or 2))
+
+
+def decompress_file_parallel(input_data, output=None, n_workers=None,
+                             executor='thread'):
+    """Decode the bzip2 stream `input_data` with its blocks decoded
+    concurrently on the host by the native block decoder; nothing runs
+    on the card.  Returns the original bytes, or writes them to `output`
+    and returns it.  Raises ValueError on a stream that does not decode.
+
+    executor='thread' (the default) runs the native decode loops, which
+    drop the GIL, on `n_workers` threads.  executor='process' forks
+    worker processes that inherit the input copy-on-write (Linux): it is
+    opt-in because forking a process that has threads, or that holds a
+    CUDA context, is unsafe -- the child may deadlock or fail on the
+    card."""
+    if executor not in ('thread', 'process'):
+        raise ValueError("executor must be 'thread' or 'process', not %r"
+                         % (executor,))
+    data = _as_stream(input_data)
+    parsed = _parse_candidates(data)
+    if parsed is None:
+        return _emit(_empty_stream(data), output)
+    dbuf_size, first_block_pos, candidates, end_hits = parsed
+    n_workers = n_workers or _default_workers()
+    if executor == 'process' and len(candidates) > 2 and n_workers > 1:
+        import multiprocessing as mp
+        key = id(data)
+        _FORK_DATA[key] = data
+        try:
+            with mp.get_context('fork').Pool(n_workers) as pool:
+                chain, end = _chain(
+                    first_block_pos, candidates, end_hits,
+                    _host_window(lambda cands: pool.map(
+                        _decode_at_fork, [(key, p, dbuf_size)
+                                          for p in cands],
+                        chunksize=max(1, len(cands) // (4 * n_workers)))))
+        finally:
+            del _FORK_DATA[key]
+    else:
+        with ThreadPoolExecutor(n_workers) as ex:
+            chain, end = _chain(
+                first_block_pos, candidates, end_hits,
+                _host_window(lambda cands: list(ex.map(
+                    lambda p: _decode_at(data, p, dbuf_size), cands))))
+    _check_stream_crc(data, end, [crc for _, crc, _ in chain])
+    return _emit(b''.join(out.tobytes() for out, _, _ in chain), output)
+
+
+def decompress_file_mesh(input_data, output=None, mesh=None, n_workers=None,
+                         entropy='host'):
+    """Decode the bzip2 stream `input_data`: each candidate block's
+    symbol decode on a host thread pool (``entropy='host'``, the native
+    block decoder) or on the mesh's card (``'device'``: the parallel
+    Huffman walk, RLE2 and MTF undo, as `decompress_file_device`); then
+    the inverse BWTs of the chained blocks sharded over `mesh` (a
+    `parallel.mesh.Mesh`; default ``make_mesh()``, one rank on 'cuda',
+    which raises without a card), the RLE1 undo and the CRC checks on
+    the host.  The RLE1 undo stays on the host because the pre-RLE1
+    column is the smaller download.  Every rank of the mesh must call it
+    with the same stream; each returns the original bytes (or writes
+    them to `output` and returns it).  Raises ValueError on a stream
+    that does not decode."""
+    if entropy not in ('host', 'device'):
+        raise ValueError("entropy must be 'host' or 'device', not %r"
+                         % (entropy,))
+    mesh = mesh if mesh is not None else make_mesh()
+    data = _as_stream(input_data)
+    parsed = _parse_candidates(data)
+    if parsed is None:
+        return _emit(_empty_stream(data), output)
+    dbuf_size, first_block_pos, candidates, end_hits = parsed
+    if entropy == 'device':
+        chain, end = _chain(
+            first_block_pos, candidates, end_hits,
+            lambda cands, bound: _decode_window(data, cands, bound,
+                                                dbuf_size, mesh.device))
+        Us = torch.zeros((len(chain), dbuf_size), dtype=torch.uint8,
+                         device=mesh.device)
+    else:
+        with ThreadPoolExecutor(n_workers or _default_workers()) as ex:
+            chain, end = _chain(
+                first_block_pos, candidates, end_hits,
+                _host_window(lambda cands: list(ex.map(
+                    lambda p: _parse_at(data, p, dbuf_size), cands))))
+        Us = np.zeros((len(chain), dbuf_size), dtype=np.uint8)
+    ns = [res[0].shape[0] for res in chain]
+    for i, res in enumerate(chain):
+        Us[i, :ns[i]] = res[0]
+    packed = sharded_ragged_inverse_bwt(
+        mesh, Us, ns, [res[1] for res in chain]).cpu().numpy()
+    pieces = [_checked(rle1_decode(packed[i, :ns[i]]), res[2])
+              for i, res in enumerate(chain)]
+    _check_stream_crc(data, end, [res[2] for res in chain])
+    return _emit(b''.join(pieces), output)

@@ -123,6 +123,27 @@ def _finish_block(block, pidx, syms, count, freq, alphabet_size, used):
         payload
 
 
+def _block_bits(block, used, alphabet_size, res):
+    """The host side of one block from its `_device_stage` result `res`:
+    (header bits, payload bytes, payload bit count).  'full' leaves only
+    the header to write; 'core' and 'hybrid' run the Huffman stages
+    (and for 'hybrid' MTF and RLE2) here."""
+    if res[0] == 'full':
+        _, pidx, payload, bits, lens, g, sel, count = res
+        return (_device_block_header(pidx, lens, g, sel, count,
+                                     alphabet_size, used), payload, bits)
+    if res[0] == 'core':
+        _, pidx, syms, count, freq = res
+    else:
+        _, pidx, U = res
+        alphabet = np.flatnonzero(used).astype(np.uint8)
+        syms, freq = mtf_rle2(U, alphabet, alphabet_size)
+        count = len(syms)
+    header, (payload, bits) = _finish_block(block, pidx, syms, count, freq,
+                                            alphabet_size, used)
+    return header, payload, bits
+
+
 class DeviceBzip2Encoder:
     """bzip2 encoder whose block transforms run on `device` ('cuda'
     unless the caller asks for 'cpu'; the CPU runs every kernel's plain
@@ -146,6 +167,7 @@ class DeviceBzip2Encoder:
         self.mode = mode
         self.self_check = self_check
         self.batch = batch
+        self._pool = None
 
     def _device_stage(self, block, alphabet_size, remap):
         """One block's device work, downloaded: ('full', pidx, payload,
@@ -192,25 +214,55 @@ class DeviceBzip2Encoder:
                      and len(full_rows) > 1)
         # one worker: the device stages run in block order, each while
         # the calling thread runs the host stage of the block before
-        with ThreadPoolExecutor(1) as pool:
+        try:
             results = []
             if use_batch:
-                batch = pool.submit(self._batch_stage,
-                                    [blocks[i][0] for i in full_rows])
+                batch = self._worker().submit(
+                    self._batch_stage, [blocks[i][0] for i in full_rows])
                 row_of = {i: r for r, i in enumerate(full_rows)}
             for i, ((block, _), (_, alphabet_size, remap)) in enumerate(
                     zip(blocks, metas)):
                 if use_batch and i in row_of:
                     results.append((batch, row_of[i]))
                 else:
-                    results.append((pool.submit(
-                        self._device_stage, block, alphabet_size, remap),
-                        None))
-            try:
-                return self._assemble(blocks, metas, results, output)
-            finally:
-                for fut, _ in results:
-                    fut.cancel()
+                    results.append((self._submit(block, alphabet_size,
+                                                 remap), None))
+            return self._assemble(blocks, metas, results, output)
+        finally:
+            self.close()
+
+    def _worker(self):
+        """The encoder's one worker thread, where its device work runs in
+        the order it was queued."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(1)
+        return self._pool
+
+    def _submit(self, block, alphabet_size, remap):
+        """Queue one block's device work (`_device_stage`) on the worker
+        thread, behind the blocks queued before it; returns a handle for
+        `_fetch_full`.  (The JAX encoder's `_submit` dispatches the same
+        work asynchronously.)"""
+        return self._worker().submit(self._device_stage, block,
+                                     alphabet_size, remap)
+
+    def _fetch_full(self, handle):
+        """Wait for a `_submit` handle: the block's `_device_stage`
+        result.  An error of the device work is raised here."""
+        return handle.result()
+
+    def _cancel(self, handle):
+        """Drop a `_submit` handle's device work if it has not started;
+        False where it ran or is running (`_fetch_full` then waits for
+        it)."""
+        return handle.cancel()
+
+    def close(self):
+        """Drop the device work still queued, wait for the block that is
+        running and end the worker thread."""
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
 
     def _assemble(self, blocks, metas, results, output):
         timer = stage_timer()
@@ -224,22 +276,10 @@ class DeviceBzip2Encoder:
                 res = fut.result() if row is None else fut.result()[row]
             if self.self_check:
                 self._check_block(block, res)
-            if res[0] == 'full':
-                _, pidx, payload, bits, lens, g, sel, count = res
-                with timer.stage('host header stage'):
-                    header = _device_block_header(pidx, lens, g, sel, count,
-                                                  alphabet_size, used)
-            else:
-                with timer.stage('host entropy stage'):
-                    if res[0] == 'core':
-                        _, pidx, syms, count, freq = res
-                    else:
-                        _, pidx, U = res
-                        alphabet = np.flatnonzero(used).astype(np.uint8)
-                        syms, freq = mtf_rle2(U, alphabet, alphabet_size)
-                        count = len(syms)
-                    header, (payload, bits) = _finish_block(
-                        block, pidx, syms, count, freq, alphabet_size, used)
+            with timer.stage('host header stage' if res[0] == 'full'
+                             else 'host entropy stage'):
+                header, payload, bits = _block_bits(block, used,
+                                                    alphabet_size, res)
             stream_crc = stream_crc_combine(stream_crc, crc)
             out.write_bits(48, WHOLEPI)
             out.write_bits(32, crc)

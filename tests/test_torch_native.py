@@ -2,15 +2,20 @@
 modules that call it) against the JAX package's host functions and
 against the port's own plain numpy twins, exactly."""
 
+import bz2
+
 import numpy as np
 import pytest
 
+from compressjs_tpu import native as native_ref
 from compressjs_tpu.codecs import bzip2 as bzip2_ref
 from compressjs_tpu.ops import bwt as bwt_ref
 from compressjs_tpu.ops import huffman_stages as hs_ref
 from compressjs_tpu.ops import rle as rle_ref
 from compressjs_tpu_torch import native
 from compressjs_tpu_torch.host import bwt, mtf_rle2, rle1
+from compressjs_tpu_torch.host import bzip2_decode as hd
+from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.host import huffman_stages as hs
 
 CASES = ['runs', 'cut_runs', 'edge4', 'constant', 'periodic', 'one_byte']
@@ -243,3 +248,181 @@ def test_build_lands_in_hashed_dir():
     path = native.build_info['path']
     assert '/_build/host-' in path and path.endswith('.so')
     assert native.build_info['cpu'] == native.cpu_model()
+
+
+# -- the host block decode: bz2_block_full, bz2_decode_block,
+# inverse_bwt and rle1_decode ------------------------------------------
+
+DECODE_CASES = ['random', 'periodic', 'runs']
+
+
+def _decode_case(name):
+    """(input bytes, its one-block stdlib bz2 -1 stream as uint8)."""
+    rng = np.random.default_rng(10 + DECODE_CASES.index(name))
+    if name == 'random':
+        data = rng.integers(0, 256, 60000).astype(np.uint8).tobytes()
+    elif name == 'periodic':
+        data = b'abcabd' * 12000
+    else:
+        vals = rng.integers(0, 8, 2000).astype(np.uint8)
+        data = np.repeat(vals, rng.choice([1, 3, 4, 5, 255, 600], 2000)
+                         ).tobytes()[:90000]
+    return data, np.frombuffer(bz2.compress(data, 1), np.uint8)
+
+
+def _after_magic(comp):
+    """(bit after the first block's magic and CRC, dbuf size)."""
+    r = bp._BitReader(comp)
+    dbuf_size = bp._start(r)
+    r.read_bits(48)
+    r.read_bits(32)
+    return r.pos, dbuf_size
+
+
+def _block_full_plain(comp, pos, dbuf_size):
+    """Twin of bz2_block_full: the Python header parse and symbol loop."""
+    r = bp._BitReader(comp)
+    r.seek_bit(pos)
+    orig_ptr, s2b, sel, groups = bp._parse_block_header(r, dbuf_size)
+    dbuf = hd.decode_symbols_plain(r, s2b, sel, groups, dbuf_size)
+    return dbuf, orig_ptr, r.pos
+
+
+@pytest.mark.parametrize('name', DECODE_CASES)
+def test_bz2_block_full(name):
+    data, comp = _decode_case(name)
+    pos, dbuf_size = _after_magic(comp)
+    got = native.bz2_block_full(comp, pos, dbuf_size)
+    for want in (native_ref.bz2_block_full(comp, pos, dbuf_size),
+                 _block_full_plain(comp, pos, dbuf_size)):
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+    # the column inverts to the block stdlib bz2 packed
+    assert rle1.rle1_decode(bwt.inverse_bwt(got[0], got[1])).tobytes() \
+        == data
+
+
+@pytest.mark.parametrize('name', DECODE_CASES)
+def test_bz2_decode_block(name):
+    _, comp = _decode_case(name)
+    pos, dbuf_size = _after_magic(comp)
+    r = bp._BitReader(comp)
+    r.seek_bit(pos)
+    _, s2b, sel, groups = bp._parse_block_header(r, dbuf_size)
+    sym_start = r.pos
+    got = hd.decode_symbols(r, s2b, sel, groups, dbuf_size)
+    got_end = r.pos
+    r.seek_bit(sym_start)
+    np.testing.assert_array_equal(
+        got, hd.decode_symbols_plain(r, s2b, sel, groups, dbuf_size))
+    assert r.pos == got_end
+    s2b_256 = np.zeros(256, np.uint8)
+    s2b_256[:len(s2b)] = s2b
+    want, want_end = native_ref.bz2_decode_block(
+        comp, sym_start, np.array(sel, np.uint8), *hd._group_tables(groups),
+        len(s2b), s2b_256, dbuf_size)
+    np.testing.assert_array_equal(got, want)
+    assert got_end == want_end
+
+
+@pytest.mark.parametrize('name', DECODE_CASES + ['one_byte', 'ragged'])
+def test_inverse_bwt(name):
+    if name in DECODE_CASES:
+        block = rle1.rle1_encode(
+            np.frombuffer(_decode_case(name)[0], np.uint8), 0, 99981)[0]
+    elif name == 'one_byte':
+        block = np.array([42], np.uint8)
+    else:   # a column that is no BWT of anything: still a permutation
+        block = np.random.default_rng(3).integers(0, 3, 777) \
+            .astype(np.uint8)
+    U = np.zeros(block.shape[0], np.uint8)
+    pidx = bwt.bwtransform2(block, U, block.shape[0])
+    for p in (pidx, block.shape[0] - 1):
+        got = bwt.inverse_bwt(U, p)
+        np.testing.assert_array_equal(got, bwt.inverse_bwt_plain(U, p))
+        np.testing.assert_array_equal(got, native_ref.inverse_bwt(U, p))
+    if name != 'ragged':
+        np.testing.assert_array_equal(bwt.inverse_bwt(U, pidx), block)
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_rle1_decode(name):
+    data, bs = _case(name)
+    for block in _blocks(name):
+        got = rle1.rle1_decode(block)
+        np.testing.assert_array_equal(got, rle1.rle1_decode_plain(block))
+        np.testing.assert_array_equal(
+            got, native_ref.rle1_decode(block, block.shape[0] * 256 + 256))
+        np.testing.assert_array_equal(got, rle_ref.rle1_decode(block))
+    # the blocks of the whole split undo to the input
+    whole = [b for b, _ in _split(rle1.rle1_encode, data, bs)]
+    np.testing.assert_array_equal(
+        np.concatenate([rle1.rle1_decode(b) for b in whole]), data)
+
+
+@pytest.mark.parametrize('where', ['payload', 'tables', 'selectors',
+                                   'orig_ptr'])
+def test_corrupt_block(where):
+    """A corrupt block gives None from bz2_block_full and ValueError from
+    the host block decode exactly where the JAX package's do."""
+    _, comp = _decode_case('runs')
+    pos, dbuf_size = _after_magic(comp)
+    bad = comp.copy()
+    if where == 'orig_ptr':     # origPtr 0xFFFFFF, past any block
+        bits = np.unpackbits(bad)
+        bits[pos + 1:pos + 25] = 1
+        bad = np.packbits(bits)
+    else:
+        at = {'payload': len(comp) // 2, 'tables': pos // 8 + 60,
+              'selectors': pos // 8 + 40}[where]
+        bad[at] ^= 0x5A
+    got = native.bz2_block_full(bad, pos, dbuf_size)
+    want = native_ref.bz2_block_full(bad, pos, dbuf_size)
+    assert (got is None) == (want is None)
+    if got is not None:
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+
+    def outcome(read, reader):
+        r = reader(bad)
+        bp._start(r)
+        try:
+            res = read(r, dbuf_size)
+        except ValueError:
+            return 'ValueError'
+        return res[0].tobytes(), res[1:]
+
+    assert outcome(hd._read_block_header, bp._BitReader) == \
+        outcome(bzip2_ref._read_block_header, bzip2_ref._BitReader)
+    assert outcome(hd._decode_one_block, bp._BitReader) == \
+        outcome(bzip2_ref._decode_one_block, bzip2_ref._BitReader)
+
+
+def test_decode_entries_reject_bad_input():
+    U = np.frombuffer(b'banana', np.uint8)
+    for pidx in (-1, 6):
+        with pytest.raises(ValueError):
+            native.inverse_bwt(U, pidx)
+        with pytest.raises(ValueError):
+            bwt.inverse_bwt_plain(U, pidx)
+    with pytest.raises(ValueError):
+        native.rle1_decode(np.array([7, 7, 7, 7, 200], np.uint8), 100)
+    _, comp = _decode_case('periodic')
+    pos, dbuf_size = _after_magic(comp)
+    r = bp._BitReader(comp)
+    r.seek_bit(pos)
+    _, s2b, sel, groups = bp._parse_block_header(r, dbuf_size)
+    tables = hd._group_tables(groups)
+    s2b_256 = np.zeros(256, np.uint8)
+    s2b_256[:len(s2b)] = s2b
+    args = (comp, r.pos, np.array(sel, np.uint8), *tables, len(s2b),
+            s2b_256, dbuf_size)
+    native.bz2_decode_block(*args)
+    bad_sel = np.array(sel, np.uint8)
+    bad_sel[0] = len(groups)          # names no table
+    bad_len = tables[1].copy()
+    bad_len[0] = 21                   # longer than bzip2 allows
+    for i, bad in ((2, bad_sel), (4, bad_len), (5, tables[2][:, :24]),
+                   (9, s2b_256[:255])):
+        with pytest.raises(ValueError):
+            native.bz2_decode_block(*args[:i], bad, *args[i + 1:])

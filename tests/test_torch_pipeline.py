@@ -122,6 +122,9 @@ def test_import_isolation():
             'import compressjs_tpu_torch.host.bwt;'
             'import compressjs_tpu_torch.host.mtf_rle2;'
             'import compressjs_tpu_torch.parallel.profiling;'
+            'import compressjs_tpu_torch.parallel.mesh;'
+            'import compressjs_tpu_torch.parallel.hetero;'
+            'import compressjs_tpu_torch.host.bzip2_decode;'
             'compressjs_tpu_torch.native.lib();'
             'bad = [m for m in sys.modules if m.split(".")[0].startswith('
             '"jax") or m.split(".")[0] == "compressjs_tpu"];'
