@@ -33,9 +33,18 @@ sample5x4's BWT columns; ``decompress_file_parallel`` of both goldens
 and the native host block decode against its numpy twins;
 ``hetero_compress_bzip2`` of sample5x4 tiled three times against
 ``compress_file_device``'s stream, failing unless the device worker
-encoded blocks.  It times the encode in each split (wall and the card's
-idle share), the decode, each multi-block path and each kernel, and
-prints:
+encoded blocks.  Then the BWTC paths: the EOF-terminated BWT on the card
+(``bwt_eof_block`` and its inverse) against the native ``cz_bwt_eof`` on
+sample5's first 900,000 bytes, random bytes and zeros;
+``DeviceBWTCEncoder`` against the host BWTC codec on sample5x4 at -9 and
+sample5 at -1; in the NCCL group, ``sharded_bwt_eof`` and
+``sharded_block_decode(eof=True)`` of sample5x4's full blocks, and the
+context-parallel ``sharded_cyclic_suffix_sort`` of a 2^20-byte slice
+against the host rotation sort; and with COMPRESSJS_TPU_BZ2_REF_TIES=1
+the 'core' and 'hybrid' encodes of sample5x4 against the hosts-only
+hetero encode.  It times the encode in each split (wall and the card's
+idle share), the decode, each multi-block path, each BWTC path and each
+kernel, and prints:
 
 * the card's name and power limit, as nvidia-smi reports them;
 * one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -1067,7 +1076,7 @@ def run_counted(fn, *args, **kw):
     return out, wall, dict(_cuda.launches)
 
 
-def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches):
+def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches, extra=()):
     """Phase "mesh (NCCL, 1 rank)": one NCCL process group of this
     process alone (a FileStore in a temporary directory: no network),
     `mesh_compress_bzip2` of sample5x4 against the golden with the main
@@ -1076,8 +1085,9 @@ def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches):
     `sharded_block_decode` of sample5x4's full-size blocks' BWT columns,
     `sharded_block_encode` of those blocks (its int16 symbols through the
     NCCL all-gather) against the native host BWT, MTF and RLE2, then one
-    warm timed call of each path.  Returns (launches by path,
-    timings)."""
+    warm timed call of each path, then each (phase name, fn(mesh)) of
+    `extra` in the same group.  Returns (launches by path, timings, the
+    extra phases' results)."""
     import tempfile
     import torch.distributed as dist
     from compressjs_tpu_torch.host.bwt import bwtransform2
@@ -1165,9 +1175,13 @@ def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches):
                 if out != want:
                     raise AssertionError('timed %s differs' % name)
                 times[name] = wall
+            results = {}
+            for name, fn in extra:
+                phase(name)
+                results[name] = fn(mesh)
         finally:
             dist.destroy_process_group()
-    return paths, times
+    return paths, times, results
 
 
 def hetero_phase(cz, s5x4):
@@ -1198,6 +1212,189 @@ def hetero_phase(cz, s5x4):
         raise AssertionError('the device worker encoded no block: %s %s'
                              % (stats, got))
     return data, ref, got, stats
+
+
+def eof_bwt_phase(s5):
+    """Phase "EOF BWT (card vs native host)": ``bwt_eof_block`` on the
+    card against ``cz_bwt_eof`` (U and pidx) on sample5's first 900,000
+    bytes, 900,000 random bytes and 900,000 zeros, and
+    ``inverse_bwt_eof_block`` on the card back to the block; each side's
+    ms per block (the card's: wall with the card synced, the sort's
+    rounds read their tie count on the host) and the card's kernels per
+    block (torch.profiler).  Returns {input: numbers}."""
+    from compressjs_tpu_torch import native
+    from compressjs_tpu_torch.ops import block_decode as bd
+    from compressjs_tpu_torch.ops import block_kernels as bk
+    n = 900000
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, block in (
+            ('sample5', np.frombuffer(s5[:n], np.uint8)),
+            ('random', rng.integers(0, 256, n).astype(np.uint8)),
+            ('zeros', np.zeros(n, np.uint8))):
+        t = torch.from_numpy(block.copy()).cuda()
+
+        def fwd():
+            return bk.bwt_eof_block(t, n)
+
+        U, pidx = fwd()
+        Un, pn = native.bwt_eof(block)
+        if int(pidx) != pn or not np.array_equal(U.cpu().numpy(), Un):
+            raise AssertionError('bwt_eof_block of %s differs from '
+                                 'cz_bwt_eof' % name)
+        Ud = torch.from_numpy(Un).cuda()
+
+        def inv():
+            return bd.inverse_bwt_eof_block(Ud, n, pn)
+
+        if not np.array_equal(inv().cpu().numpy(), block):
+            raise AssertionError('inverse_bwt_eof_block of %s differs'
+                                 % name)
+        (_, card_s), (_, host_s) = timed_sync(fwd, 3), \
+            timed_sync(lambda: native.bwt_eof(block), 3)
+        (_, inv_s), (_, host_inv_s) = timed_sync(inv, 3), \
+            timed_sync(lambda: native.inverse_bwt_eof(Un, pn), 3)
+        out[name] = {
+            'card_ms': card_s * 1e3, 'native_ms': host_s * 1e3,
+            'card_kernels': kernels_launched(fwd),
+            'inverse_card_ms': inv_s * 1e3,
+            'inverse_native_ms': host_inv_s * 1e3,
+            'inverse_card_kernels': kernels_launched(inv), 'pidx': pn}
+        print('  %s: U and pidx %d equal to cz_bwt_eof, inverse equal to '
+              'the block; forward: card %.3f ms (%d kernels), native %.3f '
+              'ms; inverse: card %.3f ms (%d kernels), native %.3f ms'
+              % (name, pn, out[name]['card_ms'], out[name]['card_kernels'],
+                 out[name]['native_ms'], out[name]['inverse_card_ms'],
+                 out[name]['inverse_card_kernels'],
+                 out[name]['inverse_native_ms']))
+    return out
+
+
+def timed_sync(fn, reps):
+    """(fn()'s result, mean wall s of `reps` calls after one warm-up,
+    the card synced around each)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps
+
+
+def bwtc_phase(cz, s5, s5x4):
+    """Phase "DeviceBWTCEncoder": sample5x4 at -9 (9 full blocks and a
+    tail) and sample5 at -1 through ``DeviceBWTCEncoder`` on the card,
+    each equal to the host codec ``host.bwtc.BWTC.compress_file`` and
+    decoded back by ``BWTC.decompress_file``; both walls in this call,
+    and the card's idle share over a profiled device encode."""
+    from torch.profiler import ProfilerActivity, profile
+    from compressjs_tpu_torch.host.bwtc import BWTC
+    out = {}
+    for name, data, level in (('sample5x4', s5x4, 9), ('sample5', s5, 1)):
+        enc = cz.DeviceBWTCEncoder(level, device='cuda')
+        got, dev_s, launches = run_counted(enc.compress, data)
+        want, host_s = timed(lambda: bytes(BWTC.compress_file(data, None,
+                                                              level)))
+        if bytes(got) != want:
+            raise AssertionError('DeviceBWTCEncoder of %s differs from the '
+                                 'host codec' % name)
+        if bytes(BWTC.decompress_file(got)) != data:
+            raise AssertionError('BWTC stream of %s does not decode' % name)
+        _, dev_s2 = timed(lambda: enc.compress(data))
+        _, host_s2 = timed(lambda: BWTC.compress_file(data, None, level))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enc.compress(data)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy = busy_ms(prof.events())
+        out[name] = {'bytes_in': len(data), 'bytes_out': len(got),
+                     'level': level, 'device_wall_s': [dev_s, dev_s2],
+                     'host_wall_s': [host_s, host_s2],
+                     'profiled_wall_s': pwall, 'busy_ms': busy,
+                     'idle_share': 1 - busy / (pwall * 1e3),
+                     'launches': launches}
+        print('  %s -%d: %d -> %d bytes, equal to the host codec, decodes; '
+              'DeviceBWTCEncoder %.4f s, %.4f s; host BWTC %.4f s, %.4f s; '
+              'profiled %.4f s, card busy %.3f ms, idle share %.4f; '
+              'package launches %s'
+              % (name, level, len(data), len(got), dev_s, dev_s2, host_s,
+                 host_s2, pwall, busy, out[name]['idle_share'], launches))
+    return out
+
+
+def mesh_eof_phase(mesh, s5x4):
+    """Phase "mesh EOF (NCCL, 1 rank)": ``sharded_bwt_eof`` of sample5x4's
+    full BWTC -9 blocks equal to their native transforms
+    (``cz_bwt_eof``), and ``sharded_block_decode(eof=True)`` of its
+    output equal to the blocks.  Returns the walls."""
+    from compressjs_tpu_torch import native
+    from compressjs_tpu_torch.parallel import mesh as pm
+    n = 900000
+    full = [np.frombuffer(s5x4[i * n:(i + 1) * n], np.uint8)
+            for i in range(len(s5x4) // n)]
+    host_bwts = [native.bwt_eof(b) for b in full]
+    blocks = np.stack(full)
+    (U, pidx), fwd_s, _ = run_counted(pm.sharded_bwt_eof, mesh, blocks)
+    if pidx.cpu().tolist() != [p for _, p in host_bwts] or \
+            not np.array_equal(U.cpu().numpy(),
+                               np.stack([u for u, _ in host_bwts])):
+        raise AssertionError('sharded_bwt_eof differs from cz_bwt_eof')
+    inv, inv_s, _ = run_counted(pm.sharded_block_decode, mesh, U, pidx,
+                                eof=True)
+    if not np.array_equal(inv.cpu().numpy(), blocks):
+        raise AssertionError('sharded_block_decode(eof=True) differs from '
+                             'the blocks')
+    print('  sharded_bwt_eof of %d blocks of %d bytes: %.3f s, equal to '
+          'cz_bwt_eof; sharded_block_decode(eof=True): %.3f s, equal to '
+          'the blocks' % (len(full), blocks.shape[1], fwd_s, inv_s))
+    return {'sharded_bwt_eof_s': fwd_s, 'sharded_block_decode_eof_s': inv_s}
+
+
+def cp_sort_phase(mesh, s5x4):
+    """Phase "CP rotation sort (NCCL, 1 rank)": ``sharded_cyclic_suffix_
+    sort`` of a 2^20-byte slice of sample5x4 (every exchange a local
+    copy at one rank) against ``host.bwt.cyclic_suffix_array``."""
+    from compressjs_tpu_torch.host.bwt import cyclic_suffix_array
+    from compressjs_tpu_torch.parallel.sharded_sort import \
+        sharded_cyclic_suffix_sort
+    block = np.frombuffer(s5x4[:1 << 20], np.uint8)
+    order, wall, _ = run_counted(sharded_cyclic_suffix_sort, mesh, block)
+    want, host_s = timed(lambda: cyclic_suffix_array(block, block.shape[0]))
+    if not np.array_equal(order.cpu().numpy(), want):
+        raise AssertionError('sharded_cyclic_suffix_sort differs from '
+                             'cyclic_suffix_array')
+    _, wall2, _ = run_counted(sharded_cyclic_suffix_sort, mesh, block)
+    print('  %d bytes: %.3f s, %.3f s, equal to cyclic_suffix_array '
+          '(numpy, %.3f s)' % (block.shape[0], wall, wall2, host_s))
+    return {'cp_sort_s': [wall, wall2], 'cyclic_suffix_array_s': host_s}
+
+
+def ref_ties_phase(cz, s5x4):
+    """Phase "reference ties": with COMPRESSJS_TPU_BZ2_REF_TIES=1 the
+    'core' and 'hybrid' encodes of sample5x4 equal the hosts-only hetero
+    encode (the host Huffman stage's reference grouping), which differs
+    from the golden's default grouping."""
+    os.environ['COMPRESSJS_TPU_BZ2_REF_TIES'] = '1'
+    try:
+        want = cz.hetero_compress_bzip2(s5x4, level=9, device=None)
+        sizes = {'hetero_hosts_only': len(want)}
+        for mode in ('core', 'hybrid'):
+            got = cz.compress_file_device(s5x4, level=9, mode=mode,
+                                          device='cuda')
+            if got != want:
+                raise AssertionError('%s with reference ties differs from '
+                                     'the hosts-only hetero encode' % mode)
+            sizes[mode] = len(got)
+    finally:
+        del os.environ['COMPRESSJS_TPU_BZ2_REF_TIES']
+    if bz2.decompress(want) != s5x4:
+        raise AssertionError('reference-ties stream does not decode')
+    print('  core, hybrid and hetero (hosts only) give the same %d bytes '
+          '(%s)' % (len(want), sizes))
+    return sizes
 
 
 def busy_ms(events):
@@ -1542,8 +1739,11 @@ def main():
                              % c1_launches)
 
     phase('mesh (NCCL, 1 rank)')
-    mesh_launches, new_times = mesh_phase(cz, s5x4, s5x4_comp, launches,
-                                          dec_launches)
+    mesh_launches, new_times, mesh_extra = mesh_phase(
+        cz, s5x4, s5x4_comp, launches, dec_launches, extra=[
+            ('mesh EOF (NCCL, 1 rank)', lambda m: mesh_eof_phase(m, s5x4)),
+            ('CP rotation sort (NCCL, 1 rank)',
+             lambda m: cp_sort_phase(m, s5x4))])
 
     phase('parallel host decode')
     from compressjs_tpu_torch.parallel.decode import block_index
@@ -1570,6 +1770,15 @@ def main():
 
     phase('hetero')
     het_data, het_ref, het_launches, het_stats = hetero_phase(cz, s5x4)
+
+    phase('EOF BWT (card vs native host)')
+    eof_bwt = eof_bwt_phase(s5)
+
+    phase('DeviceBWTCEncoder')
+    bwtc = bwtc_phase(cz, s5, s5x4)
+
+    phase('reference ties')
+    ref_ties = ref_ties_phase(cz, s5x4)
 
     phase('timing')
     t0 = torch.cuda.Event(enable_timing=True)
@@ -1781,6 +1990,11 @@ def main():
         'wall_s': new_times, 'hetero_last_stats': het_timed_stats,
         'hetero_check_stats': het_stats, 'host_decode': host_dec,
         'host_cpu': host_cpu}))
+    print('BWTC paths: ' + json.dumps({
+        'eof_bwt_per_block': eof_bwt, 'device_bwtc_encoder': bwtc,
+        'mesh_eof': mesh_extra['mesh EOF (NCCL, 1 rank)'],
+        'cp_sort': mesh_extra['CP rotation sort (NCCL, 1 rank)'],
+        'ref_ties_bytes': ref_ties, 'card': card, 'host_cpu': host_cpu}))
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -20,6 +20,14 @@ kernel's plain version runs instead):
 * `decompress_file_mesh` decodes each block's symbols on host threads
   (``entropy='host'``) or on the card (``'device'``) and shards the
   inverse BWTs over a mesh.
+* `DeviceBWTCEncoder` encodes the BWTC format with each full block's
+  EOF-terminated BWT on the GPU and the range coder on the host
+  (``host.bwtc``, a copy of the JAX package's codec, whose
+  ``BWTC.compress_file`` / ``decompress_file`` run on the host alone).
+* ``parallel.mesh.sharded_bwt_eof`` and ``sharded_block_decode(...,
+  eof=True)`` shard BWTC's transform and its inverse over a mesh, and
+  ``parallel.sharded_sort.sharded_cyclic_suffix_sort`` splits one
+  block's rotation sort over the ranks (O(n/d) on each).
 
 On the host only: `decompress_file_parallel` decodes whole blocks on a
 thread pool with the native block decoder.
@@ -34,9 +42,10 @@ from .parallel.decode import (decompress_file_device, decompress_file_mesh,
                               decompress_file_parallel)
 from .parallel.hetero import hetero_compress_bzip2
 from .parallel.mesh import make_mesh, mesh_compress_bzip2
-from .parallel.pipeline import DeviceBzip2Encoder, compress_file_device
+from .parallel.pipeline import (DeviceBWTCEncoder, DeviceBzip2Encoder,
+                                compress_file_device)
 
-__all__ = ['DeviceBzip2Encoder', 'compress_file_device',
+__all__ = ['DeviceBWTCEncoder', 'DeviceBzip2Encoder', 'compress_file_device',
            'decompress_file_device', 'decompress_file_mesh',
            'decompress_file_parallel', 'hetero_compress_bzip2', 'make_mesh',
            'mesh_compress_bzip2']

@@ -1,10 +1,18 @@
-"""The cyclic BWT and its inverse on the host (counterparts of
-``compressjs_tpu.ops.bwt.bwtransform2`` and ``inverse_bwt_cyclic``): the
-native runtime's two-stage rotation sort and LF walk, and numpy twins of
-both (`cyclic_suffix_array`, prefix doubling; `inverse_bwt_plain`, the
-LF orbit by doubling).  The encoder's ``self_check`` holds the card's
-BWT against `bwtransform2`; the host block decode inverts with
-`inverse_bwt`."""
+"""The BWTs and their inverses on the host (counterparts of
+``compressjs_tpu.ops.bwt``).
+
+* The cyclic BWT of bzip2 (`bwtransform2`, `inverse_bwt`): the native
+  runtime's two-stage rotation sort and LF walk, and numpy twins of both
+  (`cyclic_suffix_array`, prefix doubling; `inverse_bwt_plain`, the LF
+  orbit by doubling).  The encoder's ``self_check`` holds the card's
+  BWT against `bwtransform2`; the host block decode inverts with
+  `inverse_bwt`.
+* The EOF-terminated BWT of the BWTC codec (`bwtransform`,
+  `unbwtransform`), with the reference's signatures: above 4096 bytes
+  the native runtime (``cz_bwt_eof``, ``cz_inverse_bwt_eof``), else the
+  numpy twins (`bwtransform_plain` on `suffix_array`,
+  `unbwtransform_plain`).
+"""
 
 from __future__ import annotations
 
@@ -87,3 +95,97 @@ def inverse_bwt_plain(U, pidx):
         seq = np.concatenate([seq, step[seq[:n - seq.shape[0]]]])
         step = step[step]
     return U[seq][::-1].copy()
+
+
+# ---------------------------------------------------------------------------
+# the EOF-terminated BWT (BWTC)
+
+NATIVE_MIN = 4096
+
+
+def suffix_array(T, n):
+    """Suffix array (int32) of T[:n] terminated by a virtual sentinel
+    below every byte (a suffix that is a prefix of another sorts first),
+    by prefix doubling."""
+    T = np.asarray(T)[:n]
+    if n <= 1:
+        return np.zeros(max(n, 0), dtype=np.int32)
+    rank = T.astype(np.int64)
+    sa = np.argsort(rank, kind='stable')
+    diff = np.ones(n, dtype=bool)
+    diff[1:] = rank[sa][1:] != rank[sa][:-1]
+    rank = np.empty(n, dtype=np.int64)
+    rank[sa] = np.cumsum(diff) - 1
+    k = 1
+    while k < n:
+        rank2 = np.full(n, -1, dtype=np.int64)   # past the end: first
+        rank2[:n - k] = rank[k:]
+        sa = np.lexsort((rank2, rank))
+        key1, key2 = rank[sa], rank2[sa]
+        diff[1:] = (key1[1:] != key1[:-1]) | (key2[1:] != key2[:-1])
+        rank = np.empty(n, dtype=np.int64)
+        rank[sa] = np.cumsum(diff) - 1
+        if rank[sa[-1]] == n - 1:   # all ranks distinct
+            break
+        k <<= 1
+    return sa.astype(np.int32)
+
+
+def bwtransform(T, U, A, n, alphabet_size=256):
+    """EOF-terminated BWT of T[:n] into U[:n]: U[0] = T[n-1], then the
+    byte before each sorted suffix, the slot of suffix 0 skipped.
+    Returns pidx + 1, pidx being suffix 0's place in the suffix array.
+    A is scratch of the reference's signature (the twin leaves the
+    suffix array there); alphabet_size is the reference's too."""
+    if n > NATIVE_MIN:
+        U[:n], pidx = native.bwt_eof(np.asarray(T)[:n])
+        return pidx
+    return bwtransform_plain(T, U, A, n)
+
+
+def bwtransform_plain(T, U, A, n):
+    """Numpy twin of `bwtransform`."""
+    T = np.asarray(T)
+    if n <= 1:
+        if n == 1:
+            U[0] = T[0]
+        return n
+    sa = suffix_array(T, n)
+    A[:n] = sa
+    pidx = int(np.flatnonzero(sa == 0)[0])
+    prev = T[(sa - 1) % n]
+    U[0] = T[n - 1]
+    U[1:pidx + 1] = prev[:pidx]
+    U[pidx + 1:n] = prev[pidx + 1:]
+    return pidx + 1
+
+
+def unbwtransform(T, U, LF, n, pidx):
+    """Invert the EOF-terminated BWT: U[:n] from the column T[:n] and
+    `bwtransform`'s return value pidx.  LF is scratch of the
+    reference's signature."""
+    if n > NATIVE_MIN:
+        U[:n] = native.inverse_bwt_eof(np.asarray(T)[:n], pidx)
+        return
+    unbwtransform_plain(T, U, LF, n, pidx)
+
+
+def unbwtransform_plain(T, U, LF, n, pidx):
+    """Numpy twin of `unbwtransform`: the reference walks t = 0,
+    f(t), ... with f(t) = LF(t) + (LF(t) < pidx) and writes T[t] back to
+    front; here the walk is the orbit of 0 under f by doubling (the
+    last step, to slot n when pidx == n, is computed but never read, so
+    it is clamped)."""
+    T = np.asarray(T)[:n]
+    if n == 0:
+        return
+    order = np.argsort(T, kind='stable')
+    lf = np.empty(n, dtype=np.int64)
+    lf[order] = np.arange(n)
+    f = np.minimum(lf + (lf < pidx), n - 1)
+    seq = np.zeros(1, dtype=np.int64)
+    step = f
+    while seq.shape[0] < n:
+        seq = np.concatenate([seq, step[seq[:n - seq.shape[0]]]])
+        step = step[step]
+    U[:n] = T[seq[::-1]]

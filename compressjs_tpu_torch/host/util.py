@@ -1,0 +1,91 @@
+"""Container helpers and bit math of the BWTC codec (a copy of the parts
+of ``compressjs_tpu.utils.util`` that the codec and its models use).
+
+The container is the magic, then the file size + 1 as a self-delimiting
+big-endian varint (7 bits a byte, 0x80 on the last), whose last byte a
+range-coded codec may fold into the coder's free first byte.
+"""
+
+from __future__ import annotations
+
+from .stream import coerce_input_stream, coerce_output_stream
+
+
+def read_unsigned_number(input_stream):
+    n = 0
+    while True:
+        c = input_stream.read_byte()
+        if c & 0x80:
+            return n + (c & 0x7F)
+        n = (n + c) << 7
+
+
+def varint_bytes(n):
+    """The varint of n >= 0 as a list of ints."""
+    assert n >= 0
+    out = [n & 0x7F]
+    n >>= 7
+    while n != 0:
+        out.append(n & 0x7F)
+        n >>= 7
+    out[0] |= 0x80
+    return list(reversed(out))
+
+
+def fls(v):
+    """Find-last-set: the position of the most significant set bit,
+    fls(0) == 0, fls(1) == 1."""
+    assert v >= 0
+    return int(v).bit_length()
+
+
+def compress_file_helper(magic, guts, suppress_final_byte=False):
+    """A compress_file(input, output=None, props=None) entry point that
+    writes `magic` and the size varint, then calls
+    guts(in_stream, out_stream, file_size, props, final_byte).  With
+    suppress_final_byte the varint's last byte goes to guts (the range
+    coder's free first byte) instead of the stream."""
+
+    def compress_file(input_data, output=None, props=None):
+        in_stream = coerce_input_stream(input_data)
+        o = coerce_output_stream(output)
+        out_stream = o.stream
+        for ch in magic:
+            out_stream.write_byte(ord(ch))
+        file_size = in_stream.size \
+            if getattr(in_stream, 'size', -1) >= 0 else -1
+        vb = varint_bytes(file_size + 1)
+        final_byte = None
+        if suppress_final_byte:
+            vb, final_byte = vb[:-1], vb[-1]
+        for b in vb:
+            out_stream.write_byte(b)
+        guts(in_stream, out_stream, file_size, props, final_byte)
+        return o.retval
+
+    return compress_file
+
+
+def decompress_file_helper(magic, guts):
+    """A decompress_file(input, output=None) entry point that checks
+    `magic`, reads the size varint and calls
+    guts(in_stream, out_stream, file_size).  Raises ValueError on a bad
+    magic, or where a caller's stream that counts its writes
+    (``count``) received other than the declared size."""
+
+    def decompress_file(input_data, output=None):
+        in_stream = coerce_input_stream(input_data)
+        for ch in magic:
+            if ord(ch) != in_stream.read_byte():
+                raise ValueError('Bad magic')
+        file_size = read_unsigned_number(in_stream) - 1
+        o = coerce_output_stream(output, file_size if file_size >= 0
+                                 else None)
+        guts(in_stream, o.stream, file_size)
+        written = getattr(o.stream, 'count', None)
+        if (output is not None and file_size >= 0 and written is not None
+                and written != file_size):
+            raise ValueError('output size does not match decoded input')
+        return o.retval
+
+    return decompress_file

@@ -145,6 +145,20 @@ def _bind(lib):
     lib.cz_inverse_bwt.restype = None
     lib.cz_rle1_decode.argtypes = [_p_u8, _i64, _p_u8, _i64]
     lib.cz_rle1_decode.restype = _i64
+    lib.cz_bwt_eof.argtypes = [_p_u8, _p_u8, _i64]
+    lib.cz_bwt_eof.restype = _i64
+    lib.cz_inverse_bwt_eof.argtypes = [_p_u8, _p_u8, _i64, _i64]
+    lib.cz_inverse_bwt_eof.restype = None
+    lib.cz_mtf_encode.argtypes = [_p_u8, _i64, _p_u8, _i32, _p_i32]
+    lib.cz_mtf_encode.restype = None
+    lib.cz_mtf_decode.argtypes = [_p_i32, _i64, _p_u8, _i32, _p_u8]
+    lib.cz_mtf_decode.restype = None
+    lib.cz_bwtc_encode_block.argtypes = [_p_i32, _i64, _i32, _i32, _p_i64,
+                                         _p_u8]
+    lib.cz_bwtc_encode_block.restype = _i64
+    lib.cz_bwtc_decode_block.argtypes = [_p_u8, _i64, _p_i64, _i32, _i32,
+                                         _p_u8, _i64]
+    lib.cz_bwtc_decode_block.restype = _i64
     return lib
 
 
@@ -361,3 +375,97 @@ def rle1_decode(block, out_cap):
     if n < 0:
         raise ValueError('RLE1 output overflow')
     return out[:n]
+
+
+def bwt_eof(T):
+    """EOF-terminated BWT of T (the BWTC codec's transform): (U uint8,
+    pidx + 1), U[0] = T[n-1] and the slot of suffix 0 skipped."""
+    T = _u8(T)
+    n = T.shape[0]
+    if not 1 <= n < (1 << 31) - 1:
+        raise ValueError('bwt_eof: block of %d bytes' % n)
+    U = np.empty(n, dtype=np.uint8)
+    pidx = lib().cz_bwt_eof(T, U, n)
+    return U, int(pidx)
+
+
+def inverse_bwt_eof(T, pidx):
+    """Invert the EOF-terminated BWT of T with its pidx (the forward
+    transform's pidx + 1, 1 <= pidx <= len(T))."""
+    T = _u8(T)
+    n = T.shape[0]
+    if not 1 <= pidx <= n:
+        raise ValueError('inverse_bwt_eof: pidx %d outside 1..%d'
+                         % (pidx, n))
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_inverse_bwt_eof(T, out, n, pidx)
+    return out
+
+
+def _check_alphabet(alphabet, name):
+    alphabet = _u8(alphabet)
+    if not 1 <= alphabet.shape[0] <= 256:
+        raise ValueError('%s: alphabet of %d symbols'
+                         % (name, alphabet.shape[0]))
+    return alphabet
+
+
+def mtf_encode(data, alphabet):
+    """MTF indices (int32) of the bytes `data` over a list that starts as
+    `alphabet`, which must hold every byte of data."""
+    data, alphabet = _u8(data), _check_alphabet(alphabet, 'mtf_encode')
+    present = np.zeros(256, dtype=bool)
+    present[alphabet] = True
+    if not present[data].all():   # the list search would run off
+        raise ValueError('mtf_encode: a byte of data is not in the '
+                         'alphabet')
+    out = np.empty(data.shape[0], dtype=np.int32)
+    lib().cz_mtf_encode(data, data.shape[0], alphabet, alphabet.shape[0],
+                        out)
+    return out
+
+
+def mtf_decode(indices, alphabet):
+    """Bytes of the MTF indices over a list that starts as `alphabet`
+    (each index below its length)."""
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    alphabet = _check_alphabet(alphabet, 'mtf_decode')
+    if indices.shape[0] and not (0 <= int(indices.min())
+                                 and int(indices.max()) < alphabet.shape[0]):
+        raise ValueError('mtf_decode: an index outside the list')
+    out = np.empty(indices.shape[0], dtype=np.uint8)
+    lib().cz_mtf_decode(indices, indices.shape[0], alphabet,
+                        alphabet.shape[0], out)
+    return out
+
+
+def bwtc_encode_block(mtf_seq, asize, fast, enc_state):
+    """Range-code one BWTC block body: the MTF indices (each below
+    `asize`) as RUNA/RUNB zero-run digits and literals through a fresh
+    DefSum (`fast`) or Fenwick model of asize + 1 symbols, on the coder
+    whose state enc_state (int64[5], see ``host.range_coder``) holds and
+    which this call updates.  Returns the bytes written."""
+    mtf_seq = np.ascontiguousarray(mtf_seq, dtype=np.int32)
+    n = mtf_seq.shape[0]
+    if n and not (0 <= int(mtf_seq.min()) and int(mtf_seq.max()) < asize):
+        raise ValueError('bwtc_encode_block: an index outside the alphabet')
+    # a symbol costs at most two coder steps (escape and literal) of at
+    # most 16 bits each
+    out = np.empty(4 * n + 4096, dtype=np.uint8)
+    count = lib().cz_bwtc_encode_block(mtf_seq, n, asize, 1 if fast else 0,
+                                       enc_state, out)
+    return out[:count]
+
+
+def bwtc_decode_block(data, dec_state, asize, fast, length):
+    """Decode `length` MTF indices of one BWTC block body from `data` on
+    the coder whose state dec_state (int64[5]: low, range, buffer, the
+    read position) holds; updates it.  Raises ValueError where the zero
+    runs overrun the block."""
+    data = _u8(data)
+    b = np.empty(length, dtype=np.uint8)
+    r = lib().cz_bwtc_decode_block(data, data.shape[0], dec_state, asize,
+                                   1 if fast else 0, b, length)
+    if r < 0:
+        raise ValueError('BWTC block decode overrun')
+    return b

@@ -1,17 +1,21 @@
 // Native host runtime of compressjs_tpu_torch: the sequential host stages
 // of the bzip2 encode that the `core` and `hybrid` splits run beside the
-// card, the host cyclic BWT that `self_check` holds the card against, and
-// the host block decode of the parallel and mesh decoders.
+// card, the host cyclic BWT that `self_check` holds the card against, the
+// host block decode of the parallel and mesh decoders, and the BWTC
+// codec's host stages (the EOF-terminated BWT and its inverse, MTF, and
+// the range-coded block body).
 //
 // Copied from the JAX package's native runtime, with only what this
 // package calls: the SA-IS and two-stage suffix sorters, the
-// length-limited Huffman allocator, and the exports cz_huff_code_lengths,
+// length-limited Huffman allocator, the range coder with its Fenwick and
+// deferred-summation models, and the exports cz_huff_code_lengths,
 // cz_selector_mtf, cz_bwt_cyclic, cz_mtf_rle2, cz_group_costs,
 // cz_chunk_freqs, cz_payload_pack, cz_rle1_encode, cz_bz2_decode_block,
-// cz_bz2_block_full, cz_inverse_bwt and cz_rle1_decode.  Built by g++ at
-// first use and loaded with ctypes (native/__init__.py).
+// cz_bz2_block_full, cz_inverse_bwt, cz_rle1_decode, cz_bwt_eof,
+// cz_inverse_bwt_eof, cz_mtf_encode, cz_mtf_decode, cz_bwtc_encode_block
+// and cz_bwtc_decode_block.  Built by g++ at first use and loaded with
+// ctypes (native/__init__.py).
 
-#include <cstdint>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -465,6 +469,85 @@ void sort_bstar(const uint8_t* W, const std::vector<int32_t>& P,
   for (int32_t k = 0; k < m; k++) bs[V[k] - b0] = k;
 }
 
+// --- linear variant: suffix array with virtual-sentinel semantics ------
+
+void divsufsort32(const uint8_t* T, int32_t* SA, int32_t n) {
+  if (n <= 0) return;
+  if (n == 1) { SA[0] = 0; return; }
+
+  // classify suffixes (1 = type B: suffix i < suffix i+1) and count
+  std::vector<uint8_t> types(n);
+  Buckets bk;
+  types[n - 1] = 0;  // last suffix > empty suffix => type A
+  bk.cntA[T[n - 1]]++;
+  int32_t m = 0;
+  for (int32_t i = n - 2; i >= 0; i--) {
+    uint8_t t = T[i] < T[i + 1] ? 1
+              : (T[i] > T[i + 1] ? 0 : types[i + 1]);
+    types[i] = t;
+    if (t) {
+      int key = ((int)T[i] << 8) | T[i + 1];
+      if (!types[i + 1]) { bk.cntBs[key]++; m++; }
+      else bk.cntB[key]++;
+    } else {
+      bk.cntA[T[i]]++;
+    }
+  }
+  bk.layout();
+
+  if (m > 0) {
+    std::vector<int32_t> P(m), bnd(m);
+    {
+      int32_t k = 0;
+      for (int32_t i = 0; i < n - 1; i++)
+        if (types[i] && !types[i + 1]) P[k++] = i;
+      for (int32_t e = 0; e + 1 < m; e++) bnd[e] = P[e + 1] + 2;
+      bnd[m - 1] = n;
+    }
+    std::vector<int32_t> bs;
+    sort_bstar(T, P, bnd, bs, /*cyclic=*/false);
+    // drop sorted B* positions into their final SA slots (global B*
+    // order visits the (c0,c1) sub-buckets in layout order)
+    {
+      std::vector<int32_t> cur(bk.BsStart);
+      for (int32_t r = 0; r < m; r++) {
+        int32_t pos = P[bs[r]];
+        int key = ((int)T[pos] << 8) | T[pos + 1];
+        SA[cur[key]++] = pos;
+      }
+    }
+    // induce the non-B* type-B suffixes: scan each first-char bucket's
+    // B region right to left, buckets in descending order.  Every
+    // non-B* B suffix k has a type-B successor k+1 with rank(k) <
+    // rank(k+1), so its inducer is always scanned first.
+    {
+      std::vector<int32_t> cur(bk.Bend);
+      for (int c0 = 255; c0 >= 0; c0--) {
+        int32_t lo = bk.BsStart[(c0 << 8) | c0];
+        int32_t hi = bk.Bend[(c0 << 8) | 255];
+        for (int32_t i = hi - 1; i >= lo; i--) {
+          int32_t j = SA[i];
+          if (j > 0 && types[j - 1]) {
+            int key = ((int)T[j - 1] << 8) | T[j];
+            SA[--cur[key]] = j - 1;
+          }
+        }
+      }
+    }
+  }
+
+  // induce the type-A suffixes: seed with suffix n-1 (the smallest
+  // suffix of its first-char bucket), then one left-to-right scan
+  {
+    std::vector<int32_t> cur(bk.Ahead);
+    SA[cur[T[n - 1]]++] = n - 1;
+    for (int32_t i = 0; i < n; i++) {
+      int32_t j = SA[i];
+      if (j > 0 && !types[j - 1]) SA[cur[T[j - 1]]++] = j - 1;
+    }
+  }
+}
+
 // --- cyclic variant: rotation order of T (the bzip2 BWT sort) ----------
 // Output: SA[r] = start position of the r-th smallest rotation, with
 // identical rotations ordered by DESCENDING start position (matching
@@ -569,6 +652,14 @@ void cyclic_divsufsort32(const uint8_t* T, int32_t* SA, int32_t n) {
 }
 
 }  // namespace dss
+
+// Suffix sort into int32 indices.  Callers must keep n (doubled for the
+// cyclic wrapper) below 2^31 - 2; the extern "C" wrappers reject larger
+// inputs and the Python layer routes them to the numpy path.
+void suffix_sort32(const uint8_t* T, int32_t* SA, int32_t n) {
+  dss::divsufsort32(T, SA, n);
+}
+
 
 // ---------------------------------------------------------------------------
 // Static length-limited canonical Huffman code-length allocation: the
@@ -1195,9 +1286,6 @@ int64_t cz_bz2_block_full(const uint8_t* data, int64_t data_len,
   return count;
 }
 
-// Fused MTF + RLE2: BWT column -> bzip2 symbol stream (zero runs as
-// bijective base-2 RUNA/RUNB digits, literal j -> j+1, EOB appended) with
-
 // Inverse cyclic BWT: fill out[0..n) from BWT column U and pidx.
 void cz_inverse_bwt(const uint8_t* U, int64_t n, int64_t pidx,
                     uint8_t* out) {
@@ -1260,5 +1348,471 @@ int64_t cz_rle1_decode(const uint8_t* in, int64_t n, uint8_t* out,
   return o;
 }
 
+
+// EOF-terminated BWT (reference bwtransform contract): U[0]=T[n-1], the
+// suffix-0 slot is skipped; returns pidx+1.
+int64_t cz_bwt_eof(const uint8_t* T, uint8_t* U, int64_t n) {
+  if (n <= 0 || n >= (int64_t)INT32_MAX - 1) return 0;
+  if (n == 1) { U[0] = T[0]; return 1; }
+  std::vector<int32_t> SA(n);
+  suffix_sort32(T, SA.data(), (int32_t)n);
+  int64_t pidx = 0;
+  for (int64_t i = 0; i < n; i++) if (SA[i] == 0) { pidx = i; break; }
+  U[0] = T[n - 1];
+  for (int64_t i = 0; i < pidx; i++) U[i + 1] = T[SA[i] - 1];
+  for (int64_t i = pidx + 1; i < n; i++) U[i] = T[SA[i] - 1];
+  return pidx + 1;
+}
+
+// MTF encode over a dense alphabet list (alphabet[0..asize) initial order)
+void cz_mtf_encode(const uint8_t* data, int64_t n, const uint8_t* alphabet,
+                   int32_t asize, int32_t* out) {
+  uint8_t list[256];
+  std::memcpy(list, alphabet, asize);
+  for (int64_t i = 0; i < n; i++) {
+    uint8_t c = data[i];
+    int32_t j = 0;
+    while (list[j] != c) j++;
+    out[i] = j;
+    if (j) {
+      std::memmove(list + 1, list, j);
+      list[0] = c;
+    }
+  }
+}
+
+void cz_mtf_decode(const int32_t* idx, int64_t n, const uint8_t* alphabet,
+                   int32_t asize, uint8_t* out) {
+  uint8_t list[256];
+  std::memcpy(list, alphabet, asize);
+  for (int64_t i = 0; i < n; i++) {
+    int32_t j = idx[i];
+    uint8_t c = list[j];
+    out[i] = c;
+    if (j) {
+      std::memmove(list + 1, list, j);
+      list[0] = c;
+    }
+  }
+}
+
+// Inverse EOF-terminated BWT (reference unbwtransform contract,
+// BWT.js:352-363): T is the BWT column, U the output, pidx from the
+// forward transform.  A valid column's walk steps to slot n only after
+// its last byte; a corrupt one is held inside the column there (as the
+// device inverse clamps its step).
+void cz_inverse_bwt_eof(const uint8_t* T, uint8_t* U, int64_t n,
+                        int64_t pidx) {
+  if (n < (int64_t)1 << 24) {
+    // packed (LF target << 8 | byte): one random access per walk step
+    std::vector<uint32_t> lf(n);
+    uint32_t cnt[256] = {0};
+    for (int64_t i = 0; i < n; i++)
+      lf[i] = (cnt[T[i]]++ << 8) | T[i];
+    uint32_t starts[256];
+    uint32_t sum = 0;
+    for (int c = 0; c < 256; c++) { starts[c] = sum; sum += cnt[c]; }
+    for (int64_t i = 0; i < n; i++) lf[i] += starts[T[i]] << 8;
+    uint32_t t = 0;
+    for (int64_t i = n - 1; i >= 0; i--) {
+      uint32_t v = lf[t];
+      U[i] = (uint8_t)v;
+      t = v >> 8;
+      if (t < (uint32_t)pidx) t++;
+      if (t == (uint32_t)n) t = (uint32_t)n - 1;  // only a corrupt column
+    }
+    return;
+  }
+  std::vector<int64_t> lf(n);
+  int64_t cnt[256] = {0};
+  for (int64_t i = 0; i < n; i++) lf[i] = cnt[T[i]]++;
+  int64_t starts[256];
+  int64_t sum = 0;
+  for (int c = 0; c < 256; c++) { starts[c] = sum; sum += cnt[c]; }
+  int64_t t = 0;
+  for (int64_t i = n - 1; i >= 0; i--) {
+    uint8_t ch = T[t];
+    U[i] = ch;
+    t = lf[t] + starts[ch];
+    if (t < pidx) t++;
+    if (t == n) t = n - 1;  // only a corrupt column walks here
+  }
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// Range coder (Schindler carry-counting, byte-oriented) + adaptive models.
+//
+// Bit-compatible with the framework's Python coder (and hence the
+// reference rngcod13 semantics).  State crosses the C/Python boundary as
+// an int64[5]: [low, range, buffer, help, bytecount] for the encoder,
+// [low, range, buffer, in_pos, 0] for the decoder — BWTC interleaves
+// Python-coded headers with native-coded symbol streams on one coder.
+
+namespace rc {
+
+constexpr uint64_t TOP = 1ULL << 31;
+constexpr uint64_t BOT = 1ULL << 23;
+constexpr int SHIFT = 23;
+constexpr int EXTRA = 7;
+constexpr uint64_t M32 = 0xFFFFFFFFULL;
+
+struct Enc {
+  uint64_t low, range, buffer, help, bytecount;
+  uint8_t* out;
+  int64_t outlen;
+
+  void load(const int64_t* s) {
+    low = (uint64_t)s[0]; range = (uint64_t)s[1]; buffer = (uint64_t)s[2];
+    help = (uint64_t)s[3]; bytecount = (uint64_t)s[4];
+  }
+  void store(int64_t* s) const {
+    s[0] = (int64_t)low; s[1] = (int64_t)range; s[2] = (int64_t)buffer;
+    s[3] = (int64_t)help; s[4] = (int64_t)bytecount;
+  }
+  inline void put(uint8_t b) { out[outlen++] = b; }
+  inline void normalize() {
+    while (range <= BOT) {
+      if (low < (0xFFULL << SHIFT)) {
+        put((uint8_t)buffer);
+        for (; help; help--) put(0xFF);
+        buffer = (low >> SHIFT) & 0xFF;
+      } else if (low & TOP) {
+        put((uint8_t)(buffer + 1));
+        for (; help; help--) put(0x00);
+        buffer = (low >> SHIFT) & 0xFF;
+      } else {
+        help++;
+      }
+      range = (range << 8) & M32;
+      low = (low << 8) & (TOP - 1);
+      bytecount++;
+    }
+  }
+  inline void encode_freq(uint32_t sy_f, uint32_t lt_f, uint32_t tot_f) {
+    normalize();
+    uint64_t r = range / tot_f;
+    uint64_t tmp = r * lt_f;
+    low += tmp;
+    if (lt_f + sy_f < tot_f) range = r * sy_f;
+    else range -= tmp;
+  }
+  inline void encode_shift(uint32_t sy_f, uint32_t lt_f, uint32_t shift) {
+    normalize();
+    uint64_t r = range >> shift;
+    uint64_t tmp = r * lt_f;
+    low += tmp;
+    if ((lt_f + sy_f) >> shift) range -= tmp;
+    else range = r * sy_f;
+  }
+};
+
+struct Dec {
+  uint64_t low, range, buffer, help;
+  const uint8_t* in;
+  int64_t pos, len;
+
+  void load(const int64_t* s) {
+    low = (uint64_t)s[0]; range = (uint64_t)s[1]; buffer = (uint64_t)s[2];
+    pos = s[3];
+  }
+  void store(int64_t* s) const {
+    s[0] = (int64_t)low; s[1] = (int64_t)range; s[2] = (int64_t)buffer;
+    s[3] = pos;
+  }
+  inline int64_t next_byte() { return pos < len ? in[pos++] : -1; }
+  inline void normalize() {
+    while (range <= BOT) {
+      low = ((low << 8) | ((buffer << EXTRA) & 0xFF)) & M32;
+      int64_t b = next_byte();
+      buffer = (uint64_t)b;  // -1 reproduces the JS >>> semantics below
+      low = (low | (((uint64_t)b & M32) >> (8 - EXTRA))) & M32;
+      range = (range << 8) & M32;
+    }
+  }
+  // The three guards below never fire on a valid stream (totals are
+  // 1..2^23 <= range after normalize, and decoded sy_f >= 1); they cap
+  // what a CORRUPT stream can do at garbage output instead of SIGFPE
+  // (division by zero) or a zero range that would spin normalize()
+  // forever.
+  inline uint32_t decode_cul_freq(uint32_t tot_f) {
+    normalize();
+    if (tot_f == 0) tot_f = 1;
+    help = range / tot_f;
+    if (help == 0) help = 1;
+    uint64_t tmp = low / help;
+    return (uint32_t)(tmp >= tot_f ? tot_f - 1 : tmp);
+  }
+  inline uint32_t decode_cul_shift(uint32_t shift) {
+    normalize();
+    help = range >> shift;
+    if (help == 0) help = 1;
+    uint64_t tmp = low / help;
+    return (uint32_t)((tmp >> shift) ? (1ULL << shift) - 1 : tmp);
+  }
+  inline void update(uint32_t sy_f, uint32_t lt_f, uint32_t tot_f) {
+    uint64_t tmp = help * lt_f;
+    low -= tmp;
+    if (lt_f + sy_f < tot_f) range = help * sy_f;
+    else range -= tmp;
+    if (range == 0) range = 1;
+  }
+};
+
+// --- Fenwick-tree adaptive model (heap layout, packed esc|sym u32) ------
+
+struct Fenwick {
+  std::vector<uint32_t> tree;
+  int32_t num_syms;
+  uint32_t max_prob, increment;
+
+  Fenwick(int32_t size, uint32_t maxp, uint32_t incr)
+      : tree((size + 1) * 2, 0), num_syms(size + 1),
+        max_prob(maxp), increment(incr) {
+    for (int32_t i = 0; i < size; i++)
+      tree[num_syms + i] = 1;                      // esc=1, sym=0
+    tree[num_syms + size] = increment << 16;       // escape symbol
+    sum_tree();
+  }
+  void sum_tree() {
+    for (int32_t i = num_syms - 1; i > 0; i--)
+      tree[i] = tree[2 * i] + tree[2 * i + 1];
+  }
+  void rescale() {
+    bool no_escape = true;
+    for (int32_t i = 0; i < num_syms - 1; i++) {
+      uint32_t p = tree[num_syms + i];
+      if (p & 0xFFFF) { no_escape = false; continue; }
+      p = (p & 0xFFFEFFFEu) >> 1;
+      if (p == 0) { p = 1; no_escape = false; }
+      tree[num_syms + i] = p;
+    }
+    uint32_t p = (tree[num_syms + num_syms - 1] & 0xFFFEFFFEu) >> 1;
+    if (no_escape) p = 0;
+    else if (p == 0) p = 1u << 16;
+    tree[num_syms + num_syms - 1] = p;
+    sum_tree();
+  }
+  void encode(Enc& e, int32_t symbol) {
+    int32_t i = num_syms + symbol;
+    uint32_t sy_f = tree[i];
+    uint32_t mask = 0xFFFF0000u;
+    int shift = 16;
+    uint32_t update = increment << 16;
+    if ((sy_f & 0xFFFF0000u) == 0) {  // escape
+      encode(e, num_syms - 1);
+      mask = 0xFFFFu; shift = 0;
+      update -= 1;
+    } else if (symbol == num_syms - 1 && (tree[1] & 0xFFFF) == 1) {
+      update = (uint32_t)(0 - tree[i]);  // remove last escape
+    }
+    uint32_t lt_f = 0;
+    while (i > 1) {
+      int32_t parent = i >> 1;
+      if (i & 1) lt_f += tree[2 * parent];
+      tree[i] += update;
+      i = parent;
+    }
+    uint32_t tot_f = tree[1];
+    tree[1] += update;
+    e.encode_freq((sy_f & mask) >> shift, (lt_f & mask) >> shift,
+                  (tot_f & mask) >> shift);
+    if ((tree[1] >> 16) >= max_prob) rescale();
+  }
+  int32_t decode_pass(Dec& d, bool is_escape) {
+    uint32_t mask = 0xFFFF0000u;
+    int shift = 16;
+    uint32_t update = increment << 16;
+    if (is_escape) { mask = 0xFFFFu; shift = 0; update -= 1; }
+    uint32_t tot_f = (tree[1] & mask) >> shift;
+    uint32_t prob = d.decode_cul_freq(tot_f);
+    int32_t i = 1;
+    uint32_t lt_f = 0;
+    while (i < num_syms) {
+      tree[i] += update;
+      uint32_t left = (tree[2 * i] & mask) >> shift;
+      i *= 2;
+      if (prob - lt_f >= left) { lt_f += left; i++; }
+    }
+    int32_t symbol = i - num_syms;
+    uint32_t sy_f = (tree[i] & mask) >> shift;
+    tree[i] += update;
+    d.update(sy_f, lt_f, tot_f);
+    if (symbol == num_syms - 1 && (tree[1] & 0xFFFF) == 1) {
+      update = (uint32_t)(0 - tree[i]);
+      while (i >= 1) { tree[i] += update; i >>= 1; }
+    }
+    if ((tree[1] >> 16) >= max_prob) rescale();
+    return symbol;
+  }
+  int32_t decode(Dec& d) {
+    int32_t s = decode_pass(d, false);
+    if (s == num_syms - 1) s = decode_pass(d, true);
+    return s;
+  }
+};
+
+// --- Deferred-summation model -------------------------------------------
+
+struct DefSum {
+  int32_t num_syms;
+  std::vector<uint16_t> prob, escape, update_tab;
+  std::vector<uint16_t> prob_to_sym, esc_prob_to_sym;
+  int32_t update_count, update_thresh;
+  bool is_decoder;
+
+  DefSum(int32_t size, bool dec)
+      : num_syms(size), prob(size + 2, 0), escape(size + 1),
+        update_tab(size + 1, 0), update_count(0),
+        update_thresh(256 - 128), is_decoder(dec) {
+    prob[size + 1] = 256;
+    for (int32_t i = 0; i <= size; i++) escape[i] = (uint16_t)i;
+    if (dec) {
+      prob_to_sym.assign(256, (uint16_t)size);
+      esc_prob_to_sym.resize(size);
+      for (int32_t i = 0; i < size; i++) esc_prob_to_sym[i] = (uint16_t)i;
+    }
+  }
+  void do_update(int32_t symbol) {
+    if (symbol == num_syms) {
+      if (update_tab[symbol] >= 40) return;
+      if (update_count >= update_thresh - 1) return;
+    }
+    update_tab[symbol]++;
+    update_count++;
+    if (update_count < update_thresh) return;
+    int32_t cum = 0, cum_esc = 0, odd = 0;
+    for (int32_t i = 0; i < num_syms + 1; i++) {
+      int32_t np = ((prob[i + 1] - prob[i]) >> 1) + update_tab[i];
+      if (np) {
+        prob[i] = (uint16_t)cum;
+        cum += np;
+        if (np & 1) odd++;
+        escape[i] = (uint16_t)cum_esc;
+      } else {
+        prob[i] = (uint16_t)cum;
+        escape[i] = (uint16_t)cum_esc;
+        cum_esc++;
+      }
+    }
+    prob[num_syms + 1] = (uint16_t)cum;
+    update_thresh = 256 - (cum - odd) / 2;
+    for (int32_t i = 0; i < num_syms + 1; i++) update_tab[i] = 0;
+    update_tab[num_syms] = 1;
+    update_count = 1;
+    if (!is_decoder) return;
+    int32_t j = 0, k = 0;
+    for (int32_t i = 0; i < num_syms + 1; i++) {
+      for (; j < prob[i + 1]; j++) prob_to_sym[j] = (uint16_t)i;
+      if (i + 1 <= num_syms)
+        for (; k < escape[i + 1]; k++) esc_prob_to_sym[k] = (uint16_t)i;
+    }
+  }
+  void encode(Enc& e, int32_t symbol) {
+    uint32_t lt_f = prob[symbol];
+    uint32_t sy_f = prob[symbol + 1] - lt_f;
+    if (sy_f) {
+      e.encode_shift(sy_f, lt_f, 8);
+      do_update(symbol);
+      return;
+    }
+    encode(e, num_syms);
+    lt_f = escape[symbol];
+    sy_f = escape[symbol + 1] - lt_f;
+    e.encode_freq(sy_f, lt_f, escape[num_syms]);
+    do_update(symbol);
+  }
+  int32_t decode(Dec& d) {
+    uint32_t p = d.decode_cul_shift(8);
+    int32_t symbol = prob_to_sym[p];
+    uint32_t lt_f = prob[symbol];
+    uint32_t sy_f = prob[symbol + 1] - lt_f;
+    d.update(sy_f, lt_f, 256);
+    do_update(symbol);
+    if (symbol != num_syms) return symbol;
+    uint32_t tot = escape[num_syms];
+    p = d.decode_cul_freq(tot);
+    symbol = esc_prob_to_sym[p];
+    lt_f = escape[symbol];
+    sy_f = escape[symbol + 1] - lt_f;
+    d.update(sy_f, lt_f, tot);
+    do_update(symbol);
+    return symbol;
+  }
+};
+
+}  // namespace rc
+
+extern "C" {
+
+// BWTC block body: RLE2-code the MTF index stream through a fresh
+// Fenwick (fast=0) or DefSum (fast=1) model on a shared range coder.
+// enc_state: int64[5] in/out.  Returns bytes written to `out`.
+int64_t cz_bwtc_encode_block(const int32_t* mtf, int64_t n, int32_t asize,
+                             int32_t fast, int64_t* enc_state,
+                             uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  rc::Fenwick fen(fast ? 1 : asize + 1, 0xFF00, 0x100);
+  rc::DefSum def(fast ? asize + 1 : 1, false);
+  int64_t run = 0;
+  auto emit = [&](int32_t sym) {
+    if (fast) def.encode(e, sym); else fen.encode(e, sym);
+  };
+  auto flush_run = [&]() {
+    while (run) {
+      int d = (run & 1) ? 0 : 1;
+      emit(d);
+      run = (run - 1 - d) >> 1;
+    }
+  };
+  for (int64_t i = 0; i < n; i++) {
+    int32_t c = mtf[i];
+    if (c == 0) { run++; continue; }
+    flush_run();
+    emit(c + 1);
+  }
+  flush_run();
+  e.store(enc_state);
+  return e.outlen;
+}
+
+// BWTC block decode: fill b[0..length) with MTF indices.
+// dec_state: int64[5] in/out ([low, range, buffer, pos]).
+// Returns 0, or -1 on overrun.
+int64_t cz_bwtc_decode_block(const uint8_t* in, int64_t in_len,
+                             int64_t* dec_state, int32_t asize,
+                             int32_t fast, uint8_t* b, int64_t length) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  rc::Fenwick fen(fast ? 1 : asize + 1, 0xFF00, 0x100);
+  rc::DefSum def(fast ? asize + 1 : 1, true);
+  int64_t i = 0;
+  int64_t val = 1;
+  while (i < length) {
+    int32_t c = fast ? def.decode(d) : fen.decode(d);
+    if (c == 0) {
+      if (i + val > length) return -1;
+      std::memset(b + i, 0, val);
+      i += val;
+      val *= 2;
+    } else if (c == 1) {
+      if (i + 2 * val > length) return -1;
+      std::memset(b + i, 0, 2 * val);
+      i += 2 * val;
+      val *= 2;
+    } else {
+      val = 1;
+      b[i++] = (uint8_t)(c - 1);
+    }
+  }
+  d.store(dec_state);
+  return 0;
+}
 
 }  // extern "C"

@@ -9,7 +9,8 @@ Where the JAX package used ``lax.associative_scan`` the port uses:
 * Hillis-Steele doubling (ceil(log2 n) rounds, each composing every
   element with the one 2^r before it) for the composition scans of the
   RLE1 state machine and of the plain version's MTF chunk lists;
-* list ranking by pointer doubling for the inverse BWT's orbit.
+* list ranking by pointer doubling for the inverse BWTs' walks (cyclic
+  and EOF-terminated).
 
 All functions take tensors on any device and return tensors on it; none
 of them synchronises with the host unless its docstring says so.  MTF
@@ -194,18 +195,16 @@ def _lf_mapping(key):
     return lf, order
 
 
-def _orbit_ranks(lf, order, t0):
-    """rank[v] = steps from v along LF to the predecessor u of t0, for
-    every v on t0's orbit (u = order[t0], since LF[order[k]] = k).  List
-    ranking by pointer doubling: u becomes a fixed point of rank 0, and
-    each round adds the successor's rank and jumps twice as far.  After
-    ceil(log2 n) rounds a v off the orbit holds a rank >= n, and t0 holds
-    the orbit's length - 1."""
-    n = lf.shape[0]
-    u = order[t0]
-    succ = lf.clone()
+def _ranks_to(succ, u):
+    """rank[v] = steps from v along succ to u, for every v whose path
+    reaches u.  List ranking by pointer doubling: u becomes a fixed point
+    of rank 0, and each round adds the successor's rank and jumps twice
+    as far.  After ceil(log2 n) rounds a v whose path misses u holds a
+    rank >= n."""
+    n = succ.shape[0]
+    succ = succ.clone()
     succ[u] = u
-    rank = torch.ones(n, dtype=torch.int64, device=lf.device)
+    rank = torch.ones(n, dtype=torch.int64, device=succ.device)
     rank[u] = 0
     for _ in range(max(1, (n - 1).bit_length())):
         rank = rank + rank[succ]
@@ -229,7 +228,9 @@ def inverse_bwt_block_masked(U, cap, n, pidx):
     lf, order = _lf_mapping(key)
     # 1-d indices: no host sync on the card
     t0 = torch.as_tensor(pidx, device=dev).clamp(0, cap - 1).view(1)
-    rank = _orbit_ranks(lf, order, t0)
+    # steps to t0's predecessor order[t0] (LF[order[k]] = k): t0 holds
+    # its orbit's length - 1
+    rank = _ranks_to(lf, order[t0])
     period = torch.zeros(cap + 1, dtype=U.dtype, device=dev)
     period.scatter_(0, torch.where(valid & (rank < n), rank, cap), U[:cap])
     m = rank[t0] + 1
@@ -241,6 +242,29 @@ def inverse_bwt_block(U, n, pidx):
     """Invert the cyclic BWT of U[:n] with origPtr pidx < n: uint8[n]
     (counterpart of ``jax_kernels.inverse_bwt_block``)."""
     return inverse_bwt_block_masked(U, n, n, pidx)
+
+
+def inverse_bwt_eof_block(T, n, pidx):
+    """Invert the EOF-terminated BWT of T[:n] with its pidx (the forward
+    transform's pidx + 1, 1 <= pidx <= n): uint8[n] (counterpart of
+    ``jax_kernels.inverse_bwt_eof_block``).
+
+    The reference walks f(t) = LF(t) + (LF(t) < pidx) n times from t = 0
+    and writes the bytes it reads back to front.  The walk visits each
+    of the n slots once and ends at u, the slot whose LF is pidx - 1 (its
+    next step would read the row of suffix 0, which the column leaves
+    out).  So each slot v lands at output slot rank[v], its distance
+    from u along f, found by `_ranks_to` (for a column that is no EOF
+    BWT the walk is no such path, and the output is unspecified)."""
+    dev = T.device
+    T = T[:n]
+    lf, order = _lf_mapping(T.to(torch.int64))
+    f = (lf + (lf < pidx).to(torch.int64)).clamp_(max=n - 1)
+    u = order[torch.as_tensor(pidx, device=dev).view(1) - 1]
+    rank = _ranks_to(f, u)
+    out = torch.zeros(n + 1, dtype=T.dtype, device=dev)
+    out.scatter_(0, rank.clamp(max=n), T)
+    return out[:n]
 
 
 _F_EQ = (1, 2, 3, 4, 0)   # RLE1 state after a byte equal to the last

@@ -1,9 +1,11 @@
 """Tensor build of the bzip2 block transforms: rotation sort, BWT,
 move-to-front and RLE2 (counterpart of ``compressjs_tpu.ops.jax_kernels``).
 
-* `cyclic_suffix_sort` -- quad prefix doubling: each round sorts
-  (rank, rank@k, rank@2k, rank@3k) and compresses ranks to group-start
-  form, until all groups are singletons.  ``torch.sort`` takes one key,
+* `cyclic_suffix_sort` and `eof_suffix_sort` -- quad prefix doubling:
+  each round sorts (rank, rank@k, rank@2k, rank@3k) and compresses ranks
+  to group-start form, until all groups are singletons; the cyclic sort
+  wraps around the block, the EOF-terminated one (the BWTC codec's,
+  `bwt_eof_block`) reads rank -1 past its end.  ``torch.sort`` takes one key,
   so every multi-key sort is built from stable sorts, least significant
   key first, over keys packed into int64.
 * `mtf_encode` -- chunked move-to-front: per-chunk start lists from a
@@ -82,26 +84,32 @@ def _seed_ranks_start4(w0, w4, w8, w12):
     return rank, order, tied
 
 
-def _quad_double(rank, order, tied, n, k):
+def _quad_double(rank, order, tied, n, k, shift):
     """Quad doubling rounds until all ranks are distinct (or k >= n for a
-    periodic block).  Returns (rank, order, tied)."""
+    periodic block).  shift(rank, d) is the rank d positions on, as a key
+    in [0, 2^21) that orders as the rank does (the EOF-terminated sort's
+    is rank + 1, and 0 past the end).  Returns (rank, order, tied)."""
     while tied > 0 and k < n:
-        r2 = torch.roll(rank, -k)
-        r3 = torch.roll(rank, -2 * k)
-        r4 = torch.roll(rank, -3 * k)
-        # ranks are < 2^20: three of them fill one int64 key
-        packed = (rank << 40) | (r2 << 20) | r3
+        r2 = shift(rank, k)
+        r3 = shift(rank, 2 * k)
+        r4 = shift(rank, 3 * k)
+        # ranks are < 2^20: three keys fill 63 bits of one int64 key
+        packed = (rank << 42) | (r2 << 21) | r3
         order = _lex_order([packed, r4])
         rank, tied = _ranks_from_order([packed, r4], order)
         k *= 4
     return rank, order, tied
 
 
+def _check_length(n):
+    if not 0 < n < MAX_BLOCK:
+        raise ValueError('block length %d outside 1..%d' % (n, MAX_BLOCK - 1))
+
+
 def cyclic_suffix_sort(block, n):
     """Sorted rotation start indices of block[:n] (uint8), ties between
     equal rotations broken by descending index."""
-    if not 0 < n < MAX_BLOCK:
-        raise ValueError('block length %d outside 1..%d' % (n, MAX_BLOCK - 1))
+    _check_length(n)
     bu = block[:n].to(torch.int64)
 
     def word(d):
@@ -110,12 +118,60 @@ def cyclic_suffix_sort(block, n):
 
     rank, order, tied = _seed_ranks_start4(word(0), word(4), word(8),
                                            word(12))
-    rank, order, tied = _quad_double(rank, order, tied, n, 16)
+    rank, order, tied = _quad_double(rank, order, tied, n, 16,
+                                     lambda r, d: torch.roll(r, -d))
     if tied > 0:
         # periodic block: order by (rank ascending, index descending)
         idx = torch.arange(n, device=block.device)
         order = torch.sort(rank * n + (n - 1 - idx)).indices
     return order
+
+
+def eof_suffix_sort(block, n):
+    """Suffix array of block[:n] (uint8) terminated by a virtual sentinel
+    smaller than every byte: a suffix that is a prefix of another sorts
+    first (counterpart of ``jax_kernels.eof_suffix_sort``).
+
+    The ranks are seeded from twelve bytes of context, four keys of three
+    9-bit fields (byte + 1, 0 for the sentinel past the end).  The
+    sentinel field is needed: from bytes padded with 0 an all-zero block
+    would tie a short suffix with a longer one, and the rounds, which
+    look only at k = 12 * 4^t, could skip the k that separates them."""
+    _check_length(n)
+    idx = torch.arange(n, device=block.device)
+    b1 = block[:n].to(torch.int64) + 1
+
+    def shift(x, d, pad):
+        return torch.where(idx < n - d, torch.roll(x, -d), pad)
+
+    def key(d):
+        return ((shift(b1, d, 0) << 18) | (shift(b1, d + 1, 0) << 9)
+                | shift(b1, d + 2, 0))
+
+    rank, order, tied = _seed_ranks_start4(key(0), key(3), key(6), key(9))
+    rank, order, tied = _quad_double(rank, order, tied, n, 12,
+                                     lambda r, d: shift(r + 1, d, 0))
+    if tied > 0:
+        # suffixes of distinct lengths always resolve; kept as the JAX
+        # function keeps it (a stable argsort of the ranks)
+        order = torch.sort(rank, stable=True).indices
+    return order
+
+
+def bwt_eof_block(block, n):
+    """EOF-terminated BWT of block[:n] (the BWTC codec's transform):
+    (U uint8[n], pidx + 1) with U[0] = block[n-1], then the byte before
+    each sorted suffix, the slot of suffix 0 (at pidx) skipped.  pidx + 1
+    is a 0-dim tensor (no host sync)."""
+    sa = eof_suffix_sort(block, n)
+    pidx = torch.argmax((sa == 0).to(torch.int32))
+    b = block[:n]
+    prev = b[torch.where(sa == 0, n - 1, sa - 1)]
+    idx = torch.arange(n, device=block.device)
+    U = torch.where((idx > 0) & (idx <= pidx),
+                    prev[(idx - 1).clamp(min=0)], b[n - 1])
+    U = torch.where(idx > pidx, prev, U)
+    return U, pidx + 1
 
 
 def bwt_block(block, n):

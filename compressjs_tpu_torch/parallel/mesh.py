@@ -28,10 +28,12 @@ import torch.distributed as dist
 from ..convert import block_inputs
 from ..host.bits import SQRTPI, WHOLEPI, BitWriter
 from ..host.crc32 import stream_crc_combine
-from ..ops.block_decode import inverse_bwt_block, inverse_bwt_block_masked
-from ..ops.block_kernels import encode_block_core
+from ..ops.block_decode import (inverse_bwt_block, inverse_bwt_block_masked,
+                                inverse_bwt_eof_block)
+from ..ops.block_kernels import bwt_eof_block, encode_block_core
 from ..ops.device_entropy import GROUP_SIZE, encode_block_full
-from .pipeline import _block_meta, _device_block_header, _split_blocks
+from .pipeline import (_block_meta, _device_block_header, _finish_block,
+                       _ref_ties_default, _split_blocks)
 
 # NCCL and gloo move no int16: such a tensor travels as int32 and comes
 # back in its own type
@@ -204,6 +206,23 @@ def sharded_block_encode_full(mesh, blocks, remaps, eobs):
             head[:, 3], head[:, 1])
 
 
+def _ref_ties_tail(block, mesh):
+    """(header bits, payload bits) of the short tail block with the
+    reference's grouping: its sort, BWT, MTF and RLE2 on this rank's
+    device, its Huffman stage on the host (`_finish_block`)."""
+    used, alphabet_size, remap = _block_meta(block)
+    blk, remap_t, eob = block_inputs(block, remap, alphabet_size + 1,
+                                     mesh.device)
+    pidx, syms, count, freq = encode_block_core(blk, blk.shape[0], remap_t,
+                                                eob)
+    count = int(count)
+    header, (payload, bits) = _finish_block(
+        block, int(pidx), syms[:count].cpu().numpy().astype(np.uint16),
+        count, freq.cpu().numpy().astype(np.int64), alphabet_size, used,
+        ref_ties=True)
+    return header, np.unpackbits(payload, count=bits)
+
+
 def mesh_compress_bzip2(mesh, data, level=9):
     """bzip2-compress `data` with its blocks' whole encode sharded over
     `mesh` (`sharded_block_encode_full`), then the ordered assembly on
@@ -211,53 +230,77 @@ def mesh_compress_bzip2(mesh, data, level=9):
     standard stream.  Every rank is called with the same data and returns
     the same bytes, byte-identical to
     ``compressjs_tpu.codecs.bzip2.compress_file``.  The short tail block
-    takes the same device stage, on the rank that owns it."""
+    takes the same device stage, on the rank that owns it; while
+    COMPRESSJS_TPU_BZ2_REF_TIES is set every rank encodes it itself with
+    the host Huffman stage (`_ref_ties_tail`), whose grouping follows the
+    variable, as the JAX mesh's host tail does."""
     if not 1 <= level <= 9:
         raise ValueError('Invalid block size multiplier')
     data = np.frombuffer(bytes(data), dtype=np.uint8) \
         if not isinstance(data, np.ndarray) \
         else np.ascontiguousarray(data, dtype=np.uint8)
-    blocks = _split_blocks(data, level * 100000 - 19)
+    block_size = level * 100000 - 19
+    blocks = _split_blocks(data, block_size)
     metas = [_block_meta(block) for block, _ in blocks]
+    n_dev = len(blocks)
+    if blocks and blocks[-1][0].shape[0] != block_size \
+            and _ref_ties_default():
+        n_dev -= 1
     out = BitWriter()
     out.write_bits(32, int.from_bytes(b'BZh' + bytes([48 + level]), 'big'))
     stream_crc = 0
-    if blocks:
+    if n_dev:
         pidx, payload, bits, lens, g, sel, count, _ = (
             t.cpu().numpy() for t in sharded_block_encode_full(
-                mesh, [b for b, _ in blocks], [m[2] for m in metas],
-                [m[1] + 1 for m in metas]))
-        for i, ((_, crc), (used, alphabet_size, _)) in enumerate(
-                zip(blocks, metas)):
+                mesh, [b for b, _ in blocks[:n_dev]],
+                [m[2] for m in metas[:n_dev]],
+                [m[1] + 1 for m in metas[:n_dev]]))
+    for i, ((block, crc), (used, alphabet_size, _)) in enumerate(
+            zip(blocks, metas)):
+        if i < n_dev:
             header = _device_block_header(int(pidx[i]), lens[i], int(g[i]),
                                           sel[i], int(count[i]),
                                           alphabet_size, used)
-            stream_crc = stream_crc_combine(stream_crc, crc)
-            out.write_bits(48, WHOLEPI)
-            out.write_bits(32, crc)
-            out.write_bit_array(header)
-            out.write_bit_array(np.unpackbits(payload[i], count=int(bits[i])))
+            payload_bits = np.unpackbits(payload[i], count=int(bits[i]))
+        else:
+            header, payload_bits = _ref_ties_tail(block, mesh)
+        stream_crc = stream_crc_combine(stream_crc, crc)
+        out.write_bits(48, WHOLEPI)
+        out.write_bits(32, crc)
+        out.write_bit_array(header)
+        out.write_bit_array(payload_bits)
     out.write_bits(48, SQRTPI)
     out.write_bits(32, stream_crc)
     return out.getvalue()
 
 
 def sharded_block_decode(mesh, Us, pidxs, eof=False):
-    """Invert B equal-length cyclic BWT columns sharded over the mesh
-    (``ops.block_decode.inverse_bwt_block`` on each rank's blocks).
+    """Invert B equal-length BWT columns sharded over the mesh: the
+    cyclic transform of bzip2 (``ops.block_decode.inverse_bwt_block``,
+    pidx the origPtr) or, with eof=True, the EOF-terminated one of BWTC
+    (``inverse_bwt_eof_block``, pidx as `sharded_bwt_eof` returns it).
     Us: (B, n) uint8 columns (numpy or tensor); pidxs: (B,).  Returns
     the (B, n) original blocks on the mesh's device, in block order on
-    every rank.  eof=True, the EOF-terminated transform of the BWTC
-    codec, is not ported yet."""
-    if eof:
-        raise NotImplementedError(
-            'sharded_block_decode(eof=True): the EOF-terminated inverse '
-            'BWT comes with the BWTC family (ROADMAP.md queue A, item 7)')
+    every rank."""
     n = int(Us.shape[1])
+    inv = inverse_bwt_eof_block if eof else inverse_bwt_block
     sh = _Shares(mesh, int(Us.shape[0]))
-    out = [inverse_bwt_block(_on(Us[i], mesh.device), n, int(pidxs[i]))
-           for i in sh.mine]
+    out = [inv(_on(Us[i], mesh.device), n, int(pidxs[i])) for i in sh.mine]
     return sh.gather(out, (n,), torch.uint8)
+
+
+def sharded_bwt_eof(mesh, blocks):
+    """EOF-terminated BWT (``ops.block_kernels.bwt_eof_block``) of B
+    equal-length blocks sharded over the mesh, the transform of the BWTC
+    codec.  blocks: (B, n) uint8 (numpy or tensor).  Returns (U (B, n)
+    uint8, pidx (B,) int64: each block's pidx + 1) on the mesh's device,
+    in block order on every rank."""
+    n = int(blocks.shape[1])
+    sh = _Shares(mesh, int(blocks.shape[0]))
+    res = [bwt_eof_block(_on(blocks[i], mesh.device), n) for i in sh.mine]
+    U = sh.gather([r[0] for r in res], (n,), torch.uint8)
+    pidx = sh.gather([r[1] for r in res], (), torch.int64)
+    return U, pidx
 
 
 def sharded_ragged_inverse_bwt(mesh, Us, ns, pidxs):

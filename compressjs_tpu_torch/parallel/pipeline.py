@@ -28,17 +28,28 @@ mode: the port sizes each payload from its real bit count and compiles
 nothing per shape, so it needs neither the JAX encoder's host route for
 odd-length blocks nor its fixed fetch buckets (``FETCH_BUCKET``) and
 MTF width (``fixed_width``).  Output is byte-identical to
-``compressjs_tpu.codecs.bzip2.compress_file``.
+``compressjs_tpu.codecs.bzip2.compress_file``.  The host Huffman stage
+reads COMPRESSJS_TPU_BZ2_REF_TIES as the JAX package does
+(`_finish_block`); the device one has no such switch, so while it is set
+'full' runs its tail block as 'core' and its full blocks keep the
+default grouping, as the JAX encoder's do.
+
+`DeviceBWTCEncoder` is the BWTC codec (``host.bwtc``) with the full
+blocks' EOF-terminated BWT on the device.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..convert import block_inputs
+from ..host import bwt as host_bwt
+from ..host import bwtc as host_bwtc
 from ..host import huffman_stages as hs
 from ..host.bits import SQRTPI, WHOLEPI, BitArrayWriter, BitWriter
 from ..host.bwt import bwtransform2
@@ -108,14 +119,26 @@ def _device_block_header(pidx, lens, n_groups, sel, count, alphabet_size,
                          [lens[g, :m] for g in range(n_groups)])
 
 
-def _finish_block(block, pidx, syms, count, freq, alphabet_size, used):
+def _ref_ties_default():
+    """Whether COMPRESSJS_TPU_BZ2_REF_TIES asks for the reference's
+    grouping (``host.huffman_stages.optimize_groups``'s `ref_ties`), as
+    the JAX package reads it."""
+    return os.environ.get('COMPRESSJS_TPU_BZ2_REF_TIES',
+                          '0') not in ('0', '', 'false')
+
+
+def _finish_block(block, pidx, syms, count, freq, alphabet_size, used,
+                  ref_ties=None):
     """Host entropy stage of 'core' and 'hybrid': group optimisation,
-    canonical codes and payload packing of the symbol stream.  Returns
-    (header_bits, (payload_bytes, nbits))."""
+    canonical codes and payload packing of the symbol stream.  `ref_ties`
+    defaults to `_ref_ties_default()`.  Returns (header_bits,
+    (payload_bytes, nbits))."""
+    if ref_ties is None:
+        ref_ties = _ref_ties_default()
     end_of_block = alphabet_size + 1
     syms = syms[:count]
     length_matrix, selectors = hs.optimize_groups(
-        syms, end_of_block + 1, freq[:end_of_block + 1], ref_ties=False)
+        syms, end_of_block + 1, freq[:end_of_block + 1], ref_ties)
     code_matrix = np.stack([hs.canonical_codes(row)
                             for row in length_matrix])
     payload = hs.payload_bytes(syms, selectors, length_matrix, code_matrix)
@@ -172,16 +195,23 @@ class DeviceBzip2Encoder:
     def _device_stage(self, block, alphabet_size, remap):
         """One block's device work, downloaded: ('full', pidx, payload,
         bits, lens, n_groups, sel, count), ('core', pidx, syms, count,
-        freq) or ('hybrid', pidx, U)."""
+        freq) or ('hybrid', pidx, U).  While COMPRESSJS_TPU_BZ2_REF_TIES
+        is set, 'full' runs the short tail block as 'core', so that its
+        Huffman stage takes the reference's grouping on the host (the
+        device group optimisation has no such switch, in either package;
+        the JAX encoder sends the tail to the host)."""
         n = block.shape[0]
         blk, remap_t, eob = block_inputs(block, remap, alphabet_size + 1,
                                          self.device)
-        if self.mode == 'full':
+        mode = self.mode
+        if mode == 'full' and n != self.block_size and _ref_ties_default():
+            mode = 'core'
+        if mode == 'full':
             pidx, payload, bits, lens, g, sel, count, _ = encode_block_full(
                 blk, n, remap_t, eob)
             return ('full', int(pidx), payload.cpu().numpy(), bits,
                     lens.cpu().numpy(), g, sel.cpu().numpy(), count)
-        if self.mode == 'core':
+        if mode == 'core':
             pidx, syms, count, freq = bk.encode_block_core(blk, n, remap_t,
                                                            eob)
             count = int(count)
@@ -310,3 +340,70 @@ def compress_file_device(data, output=None, level=9, mode='full',
     """bzip2-compress `data` with the block transforms on `device`."""
     return DeviceBzip2Encoder(level, mode=mode, batch=batch,
                               device=device).compress(data, output)
+
+
+class DeviceBWTCEncoder:
+    """BWTC encoder with each full block's EOF-terminated BWT
+    (``ops.block_kernels.bwt_eof_block``) on `device` ('cuda' unless the
+    caller asks for 'cpu').  The codec's range coder spans every block,
+    so the coding is sequential, but each block's BWT is independent:
+    one worker thread runs the full blocks' BWTs on the device, in
+    order, and downloads them while the codec (``host.bwtc``) codes the
+    blocks before.  The short tail block takes the host transform
+    (``host.bwt.bwtransform``).  Output is byte-identical to
+    ``host.bwtc.BWTC.compress_file`` (and to the JAX package's
+    ``BWTC.compress_file``)."""
+
+    def __init__(self, level=9, device='cuda'):
+        if not 1 <= level <= 9:
+            raise ValueError('invalid level')
+        self.device = torch.device(device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError('DeviceBWTCEncoder: CUDA is not available; '
+                               "pass device='cpu' to run on the CPU")
+        self.level = level
+        self.block_size = level * 100000
+
+    def _device_bwt(self, block):
+        U, pidx = bk.bwt_eof_block(
+            torch.from_numpy(block.copy()).to(self.device), block.shape[0])
+        return U.cpu().numpy(), int(pidx)
+
+    def compress(self, data, output=None):
+        """Compress bytes-like or uint8 `data`.  Returns the stream as a
+        uint8 array, or writes it to `output` (a stream with write_byte,
+        see ``host.stream``) and returns `output`.  No worker outlives
+        the call: the device work still queued is dropped and the block
+        that runs is waited for."""
+        data = np.frombuffer(bytes(data), dtype=np.uint8) \
+            if not isinstance(data, np.ndarray) \
+            else np.ascontiguousarray(data, dtype=np.uint8)
+        bs = self.block_size
+
+        # the codec's transform pool calls the hook from several threads
+        # in no fixed order, so each result is keyed by a digest of its
+        # block's bytes (two equal blocks share one result: same BWT)
+        def block_key(a):
+            return hashlib.blake2b(a, digest_size=32).digest()
+
+        pool = ThreadPoolExecutor(1)
+        futures = {}
+        for b in range(len(data) // bs):
+            blk = data[b * bs:(b + 1) * bs]
+            key = block_key(blk)
+            if key not in futures:
+                futures[key] = pool.submit(self._device_bwt, blk)
+
+        def bwt_hook(T, U, A, n, alphabet_size=256):
+            fut = futures.get(block_key(T)) if n == bs else None
+            if fut is None:
+                return host_bwt.bwtransform(T, U, A, n, alphabet_size)
+            U[:n], pidx = fut.result()
+            return pidx
+
+        token = host_bwtc._BWT_HOOK.set(bwt_hook)
+        try:
+            return host_bwtc.BWTC.compress_file(data, output, self.level)
+        finally:
+            host_bwtc._BWT_HOOK.reset(token)
+            pool.shutdown(wait=True, cancel_futures=True)

@@ -514,3 +514,34 @@ def test_deferred_flag_raises_on_card(cuda):
     with pytest.raises(RuntimeError, match='loop bound'):
         de.optimize_groups_dev(syms, n_syms, n_chunks,
                                torch.from_numpy(freq).to(cuda), m)
+
+
+def _sample5():
+    with open(os.path.join(GOLDEN, 'sample5_bzip2_9.bz2'), 'rb') as f:
+        return bz2.decompress(f.read())
+
+
+@pytest.mark.parametrize('kind', ['text', 'zeros', 'random'])
+def test_eof_bwt_on_card_equals_native(cuda, kind):
+    """bwt_eof_block and inverse_bwt_eof_block on the card against the
+    native host transform, at the BWTC -9 block size."""
+    from compressjs_tpu_torch import native
+    n = 900000
+    rng = np.random.default_rng(3)
+    block = {'text': np.frombuffer(_sample5()[:n], np.uint8),
+             'zeros': np.zeros(n, np.uint8),
+             'random': rng.integers(0, 256, n).astype(np.uint8)}[kind]
+    U, pidx = bk.bwt_eof_block(torch.from_numpy(block.copy()).to(cuda), n)
+    Un, pn = native.bwt_eof(block)
+    assert int(pidx) == pn
+    assert np.array_equal(U.cpu().numpy(), Un)
+    back = bd.inverse_bwt_eof_block(U, n, pidx)
+    assert np.array_equal(back.cpu().numpy(), block)
+
+
+def test_device_bwtc_encoder_on_card(cuda):
+    from compressjs_tpu_torch.host.bwtc import BWTC
+    data = _sample5()[:2000000]
+    got = bytes(cz.DeviceBWTCEncoder(9, device='cuda').compress(data))
+    assert got == bytes(BWTC.compress_file(data, None, 9))
+    assert bytes(BWTC.decompress_file(got)) == data

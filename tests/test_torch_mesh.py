@@ -21,7 +21,7 @@ from compressjs_tpu.ops import jax_kernels as jk
 from compressjs_tpu.parallel import mesh as jm
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host import bzip2_parse as bp
-from compressjs_tpu_torch.host.bwt import bwtransform2
+from compressjs_tpu_torch.host.bwt import bwtransform, bwtransform2
 from compressjs_tpu_torch.ops import block_decode as bd
 from compressjs_tpu_torch.parallel import mesh as pm
 
@@ -125,6 +125,31 @@ def _columns(blocks):
     return np.stack(Us), np.asarray(pidxs, np.int32)
 
 
+def _eof_columns(blocks):
+    """EOF-terminated BWT columns of equal-length blocks and their pidx
+    (+ 1, as the transform returns it)."""
+    Us, pidxs = [], []
+    for b in blocks:
+        U = np.zeros(b.shape[0], np.uint8)
+        pidxs.append(bwtransform(b, U, np.zeros(b.shape[0], np.int32),
+                                 b.shape[0]))
+        Us.append(U)
+    return np.stack(Us), np.asarray(pidxs, np.int32)
+
+
+@pytest.mark.parametrize('kind', ['random', 'periodic', 'text'])
+def test_sharded_bwt_eof(meshes, kind):
+    mesh, jmesh = meshes
+    blocks = np.stack(_decode_blocks(kind))
+    U, pidx = (t.numpy() for t in pm.sharded_bwt_eof(mesh, blocks))
+    want = _eof_columns(blocks)
+    np.testing.assert_array_equal(U, want[0])
+    np.testing.assert_array_equal(pidx, want[1])
+    jU, jp = jm.sharded_bwt_eof(jmesh, jnp.asarray(blocks[:2]))
+    np.testing.assert_array_equal(U[:2], np.asarray(jU))
+    np.testing.assert_array_equal(pidx[:2], np.asarray(jp))
+
+
 def _decode_blocks(kind):
     rng = np.random.default_rng(5)
     if kind == 'random':
@@ -151,8 +176,12 @@ def test_sharded_block_decode(meshes, kind):
             bd.inverse_bwt_block(torch.from_numpy(U), n, int(p)).numpy(),
             np.asarray(jk.inverse_bwt_block(jnp.asarray(U), n,
                                             jnp.int32(p))))
-    with pytest.raises(NotImplementedError):
-        pm.sharded_block_decode(mesh, Us, pidxs, eof=True)
+    # the EOF-terminated transform of BWTC
+    Ue, pe = _eof_columns(blocks)
+    got = pm.sharded_block_decode(mesh, Ue, pe, eof=True).numpy()
+    np.testing.assert_array_equal(got, np.stack(blocks))
+    np.testing.assert_array_equal(got, np.asarray(
+        jm.sharded_block_decode(jmesh, Ue, pe, eof=True)))
 
 
 @pytest.mark.parametrize('kind', ['random', 'periodic', 'text'])
@@ -249,6 +278,9 @@ for name, fn in (('core', pm.sharded_block_encode),
                  ('full', pm.sharded_block_encode_full)):
     for k, t in enumerate(fn(mesh, raw, remaps, eobs)):
         arrays['%s%d' % (name, k)] = t.numpy()
+U, pidx = pm.sharded_bwt_eof(mesh, raw)
+arrays['eof_U'], arrays['eof_pidx'] = U.numpy(), pidx.numpy()
+arrays['eof_inv'] = pm.sharded_block_decode(mesh, U, pidx, eof=True).numpy()
 np.savez(os.path.join(out_dir, 'arrays%d.npz' % rank), **arrays)
 dist.destroy_process_group()
 bad = [m for m in sys.modules
@@ -264,10 +296,13 @@ print('WORKER_OK', rank, flush=True)
 def test_two_gloo_ranks(tmp_path):
     """Two processes form one gloo group (a FileStore, loopback): each
     runs mesh_compress_bzip2 and decompress_file_mesh on the same input,
-    3 level-1 blocks (the ranks own 2 and 1), and sharded_block_encode
-    and sharded_block_encode_full on three small equal blocks.  Both
-    ranks' streams equal the JAX host codec's, both decodes equal the
-    input, and both ranks' arrays equal the JAX functions'."""
+    3 level-1 blocks (the ranks own 2 and 1), and sharded_block_encode,
+    sharded_block_encode_full, sharded_bwt_eof and its inverse
+    (sharded_block_decode with eof=True) on three small equal blocks.
+    Both ranks' streams equal the JAX host codec's, both decodes equal
+    the input, and both ranks' arrays equal the JAX functions' (the EOF
+    transform: the host transform's, which the JAX sharded_bwt_eof is
+    held to in test_sharded_bwt_eof)."""
     data = _text_like(4, 250000)
     (tmp_path / 'input').write_bytes(data)
     blocks = _equal_blocks(count=3)
@@ -321,3 +356,7 @@ def test_two_gloo_ranks(tmp_path):
                                           want['full'][1][i, :nb])
         for k in (0, 2, 3, 4, 5, 6, 7):
             np.testing.assert_array_equal(got['full%d' % k], want['full'][k])
+        eof_U, eof_pidx = _eof_columns(blocks)
+        np.testing.assert_array_equal(got['eof_U'], eof_U)
+        np.testing.assert_array_equal(got['eof_pidx'], eof_pidx)
+        np.testing.assert_array_equal(got['eof_inv'], np.stack(blocks))

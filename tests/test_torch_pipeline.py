@@ -108,6 +108,62 @@ def test_tail_block_takes_device_path(monkeypatch):
     assert len(calls) == 2 and calls[0] == 99981 and calls[1] < 99981
 
 
+REF_TIES = 'COMPRESSJS_TPU_BZ2_REF_TIES'
+
+
+def _ref_ties(monkeypatch, value):
+    if value is None:
+        monkeypatch.delenv(REF_TIES, raising=False)
+    else:
+        monkeypatch.setenv(REF_TIES, value)
+
+
+@pytest.mark.parametrize('ref_ties', ['1', None])
+@pytest.mark.parametrize('encoder', ['full', 'core', 'hybrid', 'mesh'])
+def test_ref_ties_one_block(monkeypatch, encoder, ref_ties):
+    """COMPRESSJS_TPU_BZ2_REF_TIES=1 switches the host Huffman stage to
+    the reference's grouping, as it does in the JAX package: every mode
+    gives compress_file's bytes for one (tail) block at -9, with the
+    variable set and unset."""
+    _ref_ties(monkeypatch, ref_ties)
+    data = _text_like(8, 200000)
+    want = bytes(bzip2_ref.compress_file(data, None, 9))
+    if encoder == 'mesh':
+        got = cz.mesh_compress_bzip2(cz.make_mesh('cpu'), data, level=9)
+    else:
+        got = cz.compress_file_device(data, level=9, mode=encoder,
+                                      device='cpu')
+    assert got == want
+
+
+@pytest.mark.parametrize('ref_ties', ['1', None])
+@pytest.mark.parametrize('encoder', ['core', 'hybrid', 'hetero'])
+def test_ref_ties_blocks(monkeypatch, encoder, ref_ties):
+    """The same on 4 level-1 blocks, for the splits whose every block
+    takes the host Huffman stage and for the hosts-only hetero encode."""
+    _ref_ties(monkeypatch, ref_ties)
+    data = _text_like(9, 350000)
+    want = bytes(bzip2_ref.compress_file(data, None, 1))
+    if encoder == 'hetero':
+        got = cz.hetero_compress_bzip2(data, level=1, device=None)
+    else:
+        got = cz.compress_file_device(data, level=1, mode=encoder,
+                                      device='cpu')
+    assert got == want
+
+
+@pytest.mark.parametrize('seed,n,level', [(8, 200000, 9), (9, 350000, 1)])
+def test_ref_ties_changes_the_grouping(monkeypatch, seed, n, level):
+    """The inputs above tell the two groupings apart."""
+    data = _text_like(seed, n)
+    _ref_ties(monkeypatch, '1')
+    with_ties = cz.compress_file_device(data, level=level, mode='core',
+                                        device='cpu')
+    _ref_ties(monkeypatch, None)
+    assert with_ties != cz.compress_file_device(data, level=level,
+                                                mode='core', device='cpu')
+
+
 def test_import_isolation():
     """The port loads neither JAX nor any compressjs_tpu module."""
     code = ('import sys, compressjs_tpu_torch, compressjs_tpu_torch.convert;'
@@ -125,6 +181,19 @@ def test_import_isolation():
             'import compressjs_tpu_torch.parallel.mesh;'
             'import compressjs_tpu_torch.parallel.hetero;'
             'import compressjs_tpu_torch.host.bzip2_decode;'
+            'import compressjs_tpu_torch.host.bwtc;'
+            'import compressjs_tpu_torch.host.mtf;'
+            'import compressjs_tpu_torch.host.rle;'
+            'import compressjs_tpu_torch.host.range_coder;'
+            'import compressjs_tpu_torch.host.stream;'
+            'import compressjs_tpu_torch.host.util;'
+            'import compressjs_tpu_torch.host.no_model;'
+            'import compressjs_tpu_torch.host.log_distance_model;'
+            'import compressjs_tpu_torch.host.defsum_model;'
+            'import compressjs_tpu_torch.host.fenwick_model;'
+            'import compressjs_tpu_torch.parallel.sharded_sort;'
+            'compressjs_tpu_torch.DeviceBWTCEncoder(1, device="cpu")'
+            '.compress(bytes(range(256)) * 400);'
             'compressjs_tpu_torch.native.lib();'
             'bad = [m for m in sys.modules if m.split(".")[0].startswith('
             '"jax") or m.split(".")[0] == "compressjs_tpu"];'
