@@ -42,7 +42,14 @@ sample5 at -1; in the NCCL group, ``sharded_bwt_eof`` and
 context-parallel ``sharded_cyclic_suffix_sort`` of a 2^20-byte slice
 against the host rotation sort; and with COMPRESSJS_TPU_BZ2_REF_TIES=1
 the 'core' and 'hybrid' encodes of sample5x4 against the hosts-only
-hetero encode.  It times the encode in each split (wall and the card's
+hetero encode.  Then the BWTC-P and BWTC-L formats: the Fenwick model's
+encode and decode scans and the range coder's (three kernels) against
+their plain versions on sample5's first -9 block as BWTC-L's 128 lanes,
+on the first 4,096 steps of its BWTC-P lane and on random lanes with a
+low max_prob, and alone on the whole BWTC-P lane;
+``bwtcp_compress_device`` and ``bwtcl_compress_device`` of sample5x4 at
+-9 against the host codecs, ``bwtcl_decompress_device`` back, and in
+the NCCL group ``mesh_compress_bwtcp``.  It times the encode in each split (wall and the card's
 idle share), the decode, each multi-block path, each BWTC path and each
 kernel, and prints:
 
@@ -1397,6 +1404,368 @@ def ref_ties_phase(cz, s5x4):
     return sizes
 
 
+def scan_inputs(s5, dev):
+    """sample5's first 900,000 bytes as the two BWTC paths give them to
+    the scan kernels, built on the card as the paths build them: the
+    BWTC-L lanes (128, 7,032) and the BWTC-P lane (1, 900,001) with the
+    coder state the host leaves after the block's header.  Returns
+    {'L': (syms, valid, Ns), 'P': (syms, valid, Ns, init)}."""
+    from compressjs_tpu_torch.host import bwtcp as hbwtcp
+    from compressjs_tpu_torch.host.range_coder import RangeCoder
+    from compressjs_tpu_torch.host.stream import BufferStream
+    from compressjs_tpu_torch.ops import block_kernels as bk
+    from compressjs_tpu_torch.ops import device_lane as dl
+    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    bs, lanes = 900000, 128
+    block = np.frombuffer(s5[:bs], np.uint8)
+    used, asize, remap = _block_meta(block)
+    U, pidx = bk.bwt_eof_block(torch.from_numpy(block.copy()).to(dev), bs)
+    dense = torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
+    syms, cnt, _ = bk.rle2_encode(bk.mtf_encode(dense, bs), bs, 0)
+    S = int(cnt) - 1
+    T = dl.lane_caps(bs, lanes)[0]
+    padded = torch.zeros(T * lanes, dtype=torch.int32, device=dev)
+    padded[:bs + 1] = syms.to(torch.int32)
+    lane_l = (padded.view(T, lanes).T.contiguous(),
+              dl._lane_valid(T, lanes, S, dev),
+              torch.full((lanes,), asize + 2, dtype=torch.int32, device=dev))
+    out = BufferStream()
+    enc = RangeCoder(out)
+    enc.encode_start(0, 0)
+    hbwtcp._write_header(enc, 9, bs, int(pidx), used)
+    lane_p = (syms.to(torch.int32)[None, :],
+              (torch.arange(bs + 1, device=dev) < S)[None, :],
+              torch.tensor([asize + 2], dtype=torch.int32, device=dev),
+              torch.from_numpy(enc.export_enc_state()[None, :]).to(dev))
+    return {'L': lane_l, 'P': lane_p, 'S': S, 'asize': asize}
+
+
+def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
+                smem_ns, plain=True):
+    """The three scan kernels on one input against their plain versions
+    on the same tensors on the card (where `plain`): the encode's
+    triples, the coder's tokens, counts and byte counts, and the decode
+    of those bytes (from the free byte's state, rows cut at the longest
+    lane: the EOF byte).  Then each kernel alone (its C entry, outputs
+    allocated once) by CUDA events over `reps` launches, each plain
+    version's wall once, and the bounds.  Returns a dict."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import device_coder as dc
+    from compressjs_tpu_torch.ops import device_model as dm
+    L, T = syms.shape
+    max_n, incr = 258, 0x100
+    res = {'lanes': L, 'steps': T, 'valid_steps': int(valid.sum())}
+    enc = dm.fenwick_encode_streams(syms, valid, Ns, max_n, max_prob, incr)
+    tok = dc.batched_range_encode(*enc, None, None, tok_cap,
+                                  init_state=init)
+    byts, lens = dc.token_bytes(*tok, 3 * T + 64)
+    byts = byts[:, :int(lens.max())].contiguous()
+    st = torch.stack(dc.dec_start_state(byts, torch.ones(
+        L, dtype=torch.int64, device=dev)), 1)
+    dec = dm.fenwick_decode_streams(byts, st, Ns, max_n, max_prob, incr,
+                                    valid)
+    if plain:
+        enc_p, res['encode_plain_ms'] = timed_card(
+            lambda: dm.fenwick_encode_streams_plain(syms, valid, Ns, max_n,
+                                                    max_prob, incr))
+        tok_p, res['coder_plain_ms'] = timed_card(
+            lambda: dc.batched_range_encode_plain(*enc, init, tok_cap))
+        dec_p, res['decode_plain_ms'] = timed_card(
+            lambda: dm.fenwick_decode_streams_plain(byts, st, Ns, max_n,
+                                                    max_prob, incr, valid))
+        res['encode_err'] = max_err(enc, enc_p)
+        res['coder_err'] = max_err(tok, tok_p)
+        res['decode_err'] = max_err((dec[0],) + dec[1],
+                                    (dec_p[0],) + dec_p[1])
+        if max(res['encode_err'], res['coder_err'], res['decode_err']):
+            raise AssertionError('scan kernels differ from their plain '
+                                 'versions on %d x %d: %s' % (L, T, res))
+    # the stream decodes to its symbols where its coder started fresh
+    # (init is then encode_start's)
+    if bool((init[:, 1] == 1 << 31).all() and (init[:, 0] == 0).all()):
+        res['round_trip'] = bool(torch.equal(dec[0][valid], syms[valid]))
+        if not res['round_trip']:
+            raise AssertionError('scan kernels: %d x %d lanes do not decode '
+                                 'to their symbols' % (L, T))
+    # the kernels alone
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+    s32, v8, n32 = (syms.to(torch.int32).contiguous(),
+                    valid.to(torch.uint8).contiguous(),
+                    Ns.to(torch.int32).contiguous())
+    sy, lt, tot, vo = (torch.empty_like(x) for x in enc)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    tokens = torch.zeros((L, tok_cap, 3), dtype=torch.int32, device=dev)
+    tok_n = torch.empty(L, dtype=torch.int32, device=dev)
+    nbytes = torch.empty(L, dtype=torch.int64, device=dev)
+    ev8 = enc[3].to(torch.uint8).contiguous()
+    st0 = torch.stack(dm._dec_states(st), 1).contiguous()
+    st1 = st0.clone()
+    out = torch.empty((L, T), dtype=torch.int32, device=dev)
+
+    def k_enc():
+        _cuda.check(lib.cz_fenwick_encode(
+            s32.data_ptr(), v8.data_ptr(), n32.data_ptr(), L, T, max_n,
+            max_prob, incr, sy.data_ptr(), lt.data_ptr(), tot.data_ptr(),
+            vo.data_ptr(), err.data_ptr(), stream), 'fenwick_encode')
+
+    def k_code():
+        _cuda.check(lib.cz_range_encode(
+            enc[0].data_ptr(), enc[1].data_ptr(), enc[2].data_ptr(),
+            ev8.data_ptr(), init.data_ptr(), L, 2 * T, tokens.data_ptr(),
+            tok_cap, tok_n.data_ptr(), nbytes.data_ptr(), stream),
+            'range_encode')
+
+    def k_dec():
+        st1.copy_(st0)
+        _cuda.check(lib.cz_fenwick_decode(
+            byts.data_ptr(), byts.shape[1], st1.data_ptr(), n32.data_ptr(),
+            v8.data_ptr(), L, T, max_n, max_prob, incr, out.data_ptr(),
+            err.data_ptr(), stream), 'fenwick_decode')
+
+    res['encode_ms'] = cuda_ms(k_enc, reps)
+    res['coder_ms'] = cuda_ms(k_code, reps)
+    res['decode_ms'] = cuda_ms(k_dec, reps)
+    if int(err):
+        raise AssertionError('a scan kernel flagged its input')
+    # bounds: bytes in and out once at the HBM rate; integer operations
+    # (per valid symbol a walk of `levels` read-add-write steps of ~4
+    # operations; per valid triple ~12 coder operations) at the INT32
+    # rate; and the chain of the longest lane, one dependent
+    # shared-memory step (smem_ns, cz_smem_chain_probe) per tree level
+    # per symbol, and one per triple for the coder
+    levels = int(Ns.max()).bit_length()
+    n_valid, n_trip = int(valid.sum()), int(enc[3].sum())
+    lane_valid = int(valid.sum(1).max())
+    lane_trip = int(enc[3].sum(1).max())
+    n_tok = int(tok[1].clamp(max=tok_cap).sum())
+    res['encode_bound_ms'], res['encode_bound_by'] = bound(
+        L * T * 5 + L * 2 * T * 13, n_valid * levels * 4)
+    res['coder_bound_ms'], res['coder_bound_by'] = bound(
+        L * 2 * T * 13 + n_tok * 12, n_trip * 12)
+    res['decode_bound_ms'], res['decode_bound_by'] = bound(
+        int(lens.sum()) + L * T * 5, n_valid * levels * 5)
+    res['encode_chain_floor_ms'] = lane_valid * levels * smem_ns * 1e-6
+    res['coder_chain_floor_ms'] = lane_trip * smem_ns * 1e-6
+    res['decode_chain_floor_ms'] = lane_valid * levels * smem_ns * 1e-6
+    res['tokens'] = n_tok
+    res['bytes'] = int(lens.sum())
+    return res
+
+
+def max_err(got, want):
+    """Largest absolute difference over pairs of integer tensors."""
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in zip(got, want))
+
+
+def timed_card(fn):
+    """(fn(), its wall ms with the card synced around it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def scan_phase(s5, dev, smem_ns):
+    """Phase "Fenwick/coder kernels vs plain versions": the three scan
+    kernels against their plain versions on sample5's first -9 block as
+    BWTC-L's 128 lanes (every step), on the first 4,096 steps of that
+    block's BWTC-P lane (the plain versions cannot walk its 900,001 steps
+    inside the smoke's time limit), and on 128 random lanes with max_prob
+    0x400 (escapes and rescales); then the kernels on the whole BWTC-P
+    lane, the main path's shape, where they decode what they coded."""
+    from compressjs_tpu_torch.ops import device_coder as dc
+    from compressjs_tpu_torch.ops import device_lane as dl
+    inp = scan_inputs(s5, dev)
+    out = {'asize': inp['asize'], 'S': inp['S']}
+    lsyms, lvalid, lNs = inp['L']
+    zeros = torch.zeros(lsyms.shape[0], dtype=torch.int64, device=dev)
+    out['bwtcl_lanes'] = check_scans(
+        lsyms, lvalid, lNs, 0xFF00, dc.encoder_states(zeros, zeros),
+        dl.lane_caps(900000, 128)[1], dev, 20, smem_ns)
+    psyms, pvalid, pNs, pinit = inp['P']
+    n = 4096
+    out['bwtcp_lane_4096'] = check_scans(
+        psyms[:, :n].contiguous(), pvalid[:, :n].contiguous(), pNs, 0xFF00,
+        pinit, 2 * n + 8, dev, 20, smem_ns)
+    rng = np.random.default_rng(77)
+    L, T = 128, 1000
+    sizes = rng.integers(1, 257, L)
+    rsyms = np.minimum(rng.zipf(1.2, (L, T)) - 1, sizes[:, None] - 1)
+    rvalid = np.arange(T)[None, :] < rng.integers(T // 2, T + 1, L)[:, None]
+    zeros = torch.zeros(L, dtype=torch.int64, device=dev)
+    out['random_0x400'] = check_scans(
+        torch.from_numpy(rsyms.astype(np.int32)).to(dev),
+        torch.from_numpy(rvalid).to(dev),
+        torch.from_numpy((sizes + 1).astype(np.int32)).to(dev), 0x400,
+        dc.encoder_states(zeros, zeros), 2 * T + 8, dev, 20, smem_ns)
+    # the whole lane (the main path's shape) from a fresh coder, so that
+    # its decode is of a real stream: the kernels against each other
+    # (encode -> code -> decode gives the symbols back); its block
+    # stream is held to the host codec's in "BWTC-P on the card"
+    zeros = torch.zeros(1, dtype=torch.int64, device=dev)
+    out['bwtcp_lane_full'] = check_scans(
+        psyms.contiguous(), pvalid.contiguous(), pNs, 0xFF00,
+        dc.encoder_states(zeros, zeros), 900000 + (900000 >> 2) + 64, dev,
+        3, smem_ns, plain=False)
+    for name, r in out.items():
+        if not isinstance(r, dict):
+            continue
+        print('  %s (%d x %d, %d valid steps): encode %.4f ms (plain %s), '
+              'coder %.4f ms (plain %s), decode %.4f ms (plain %s); bounds '
+              '%.5f / %.5f / %.5f ms, chain floors %.4f / %.4f / %.4f ms'
+              % (name, r['lanes'], r['steps'], r['valid_steps'],
+                 r['encode_ms'], _ms(r.get('encode_plain_ms')),
+                 r['coder_ms'], _ms(r.get('coder_plain_ms')),
+                 r['decode_ms'], _ms(r.get('decode_plain_ms')),
+                 r['encode_bound_ms'], r['coder_bound_ms'],
+                 r['decode_bound_ms'], r['encode_chain_floor_ms'],
+                 r['coder_chain_floor_ms'], r['decode_chain_floor_ms']))
+    print('  the plain versions walk every step of the BWTC-L lanes and of '
+          'the random lanes, and the first 4,096 of the BWTC-P lane\'s '
+          '900,001 (all of them would outlast the smoke\'s time limit)')
+    return out
+
+
+def _ms(x):
+    return 'not run' if x is None else '%.1f ms' % x
+
+
+def bwtcp_phase(cz, s5x4):
+    """Phase "BWTC-P on the card": ``bwtcp_compress_device`` of sample5x4
+    at -9 against the host codec ``BWTCP.compress_file`` (in this call),
+    decoded back by the host decoder; walls, the card's busy ms and idle
+    share over a profiled run, the kernels' launches and the routes'
+    block counts (overflow_blocks among them)."""
+    from compressjs_tpu_torch.host.bwtcp import BWTCP
+    from compressjs_tpu_torch.parallel import pipeline as pl
+    got, dev_s, launches = run_counted(cz.bwtcp_compress_device, s5x4,
+                                       level=9)
+    stats = dict(pl.bwtcp_compress_device.last_stats)
+    want, host_s = timed(lambda: bytes(BWTCP.compress_file(s5x4, None, 9)))
+    if bytes(got) != want:
+        raise AssertionError('bwtcp_compress_device differs from the host '
+                             'codec')
+    if bytes(BWTCP.decompress_file(got)) != s5x4:
+        raise AssertionError('BWTC-P stream does not decode')
+    n_full = len(s5x4) // 900000
+    if stats['device_blocks'] + stats['overflow_blocks'] != n_full or \
+            launches['fenwick_encode'] < 1 or launches['range_encode'] < 1 \
+            or launches['mtf_scan'] != 3 * n_full:
+        raise AssertionError('BWTC-P path: launches %s, stats %s'
+                             % (launches, stats))
+    _, dev_s2 = timed(lambda: cz.bwtcp_compress_device(s5x4, level=9))
+    _, host_s2 = timed(lambda: BWTCP.compress_file(s5x4, None, 9))
+    pwall, busy = profiled(lambda: cz.bwtcp_compress_device(s5x4, level=9))
+    out = {'bytes_in': len(s5x4), 'bytes_out': len(got),
+           'device_wall_s': [dev_s, dev_s2], 'host_wall_s': [host_s, host_s2],
+           'profiled_wall_s': pwall, 'busy_ms': busy,
+           'idle_share': 1 - busy / (pwall * 1e3), 'launches': launches,
+           'stats': stats}
+    print('  sample5x4 -9: %d -> %d bytes, equal to the host codec, decodes; '
+          'card path %.4f s, %.4f s; host BWTCP %.4f s, %.4f s; profiled '
+          '%.4f s, card busy %.3f ms, idle share %.4f; launches %s; blocks '
+          '%s' % (len(s5x4), len(got), dev_s, dev_s2, host_s, host_s2, pwall,
+                  busy, out['idle_share'], launches, stats))
+    return out
+
+
+def profiled(fn):
+    """(wall s, the card's busy ms) of one fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    return pwall, busy_ms(prof.events())
+
+
+def bwtcl_phase(cz, s5x4):
+    """Phase "BWTC-L on the card": ``bwtcl_compress_device`` of sample5x4
+    at -9 against the host codec ``BWTCL.compress_file``, and
+    ``bwtcl_decompress_device`` of it and of the host's stream back to
+    sample5x4; walls against the host codec's in this call, busy ms and
+    idle share of each direction, the launches of each."""
+    from compressjs_tpu_torch.host.bwtcl import BWTCL
+    from compressjs_tpu_torch.parallel import pipeline as pl
+    got, enc_s, enc_launches = run_counted(cz.bwtcl_compress_device, s5x4,
+                                           level=9)
+    enc_stats = dict(pl.bwtcl_compress_device.last_stats)
+    want, host_enc_s = timed(lambda: bytes(BWTCL.compress_file(s5x4, None,
+                                                               9)))
+    if bytes(got) != want:
+        raise AssertionError('bwtcl_compress_device differs from the host '
+                             'codec')
+    back, dec_s, dec_launches = run_counted(cz.bwtcl_decompress_device, got)
+    dec_stats = dict(pl.bwtcl_decompress_device.last_stats)
+    if bytes(back) != s5x4 or bytes(cz.bwtcl_decompress_device(want)) != \
+            s5x4:
+        raise AssertionError('bwtcl_decompress_device does not return '
+                             'sample5x4')
+    host_back, host_dec_s = timed(lambda: BWTCL.decompress_file(want))
+    if bytes(host_back) != s5x4:
+        raise AssertionError('host BWTC-L decode differs')
+    n_full = len(s5x4) // 900000
+    if enc_launches['fenwick_encode'] != enc_stats['device_blocks'] or \
+            enc_launches['range_encode'] != enc_stats['device_blocks'] or \
+            enc_launches['mtf_scan'] != 3 * n_full or \
+            dec_launches['fenwick_decode'] != dec_stats['device_blocks'] or \
+            dec_launches['mtf_undo'] != 3 * dec_stats['device_blocks'] or \
+            not dec_stats['device_blocks']:
+        raise AssertionError('BWTC-L paths: launches %s / %s, stats %s / %s'
+                             % (enc_launches, dec_launches, enc_stats,
+                                dec_stats))
+    _, enc_s2 = timed(lambda: cz.bwtcl_compress_device(s5x4, level=9))
+    _, host_enc_s2 = timed(lambda: BWTCL.compress_file(s5x4, None, 9))
+    _, dec_s2 = timed(lambda: cz.bwtcl_decompress_device(got))
+    _, host_dec_s2 = timed(lambda: BWTCL.decompress_file(want))
+    enc_pwall, enc_busy = profiled(
+        lambda: cz.bwtcl_compress_device(s5x4, level=9))
+    dec_pwall, dec_busy = profiled(lambda: cz.bwtcl_decompress_device(got))
+    out = {'bytes_in': len(s5x4), 'bytes_out': len(got),
+           'encode_wall_s': [enc_s, enc_s2],
+           'host_encode_wall_s': [host_enc_s, host_enc_s2],
+           'decode_wall_s': [dec_s, dec_s2],
+           'host_decode_wall_s': [host_dec_s, host_dec_s2],
+           'encode_profiled_wall_s': enc_pwall, 'encode_busy_ms': enc_busy,
+           'encode_idle_share': 1 - enc_busy / (enc_pwall * 1e3),
+           'decode_profiled_wall_s': dec_pwall, 'decode_busy_ms': dec_busy,
+           'decode_idle_share': 1 - dec_busy / (dec_pwall * 1e3),
+           'encode_launches': enc_launches, 'decode_launches': dec_launches,
+           'encode_stats': enc_stats, 'decode_stats': dec_stats}
+    print('  sample5x4 -9: %d -> %d bytes, equal to the host codec; decodes '
+          '(card and host streams); encode: card %.4f s, %.4f s, host %.4f '
+          's, %.4f s, busy %.3f ms, idle share %.4f; decode: card %.4f s, '
+          '%.4f s, host %.4f s, %.4f s, busy %.3f ms, idle share %.4f'
+          % (len(s5x4), len(got), enc_s, enc_s2, host_enc_s, host_enc_s2,
+             enc_busy, out['encode_idle_share'], dec_s, dec_s2, host_dec_s,
+             host_dec_s2, dec_busy, out['decode_idle_share']))
+    print('  launches: encode %s, decode %s; blocks: encode %s, decode %s'
+          % (enc_launches, dec_launches, enc_stats, dec_stats))
+    return out
+
+
+def mesh_bwtcp_phase(cz, mesh, s5x4):
+    """Phase "mesh BWTC-P (NCCL, 1 rank)": ``mesh_compress_bwtcp`` of
+    sample5x4 at -9 equal to the host codec's bytes."""
+    from compressjs_tpu_torch.host.bwtcp import BWTCP
+    got, wall, launches = run_counted(cz.mesh_compress_bwtcp, mesh, s5x4,
+                                      level=9)
+    want = bytes(BWTCP.compress_file(s5x4, None, 9))
+    if bytes(got) != want:
+        raise AssertionError('mesh_compress_bwtcp differs from the host '
+                             'codec')
+    _, wall2, _ = run_counted(cz.mesh_compress_bwtcp, mesh, s5x4, level=9)
+    print('  mesh_compress_bwtcp of sample5x4 -9: %d bytes, equal to the '
+          'host codec; %.3f s, %.3f s; launches %s'
+          % (len(got), wall, wall2, launches))
+    return {'wall_s': [wall, wall2], 'launches': launches}
+
+
 def busy_ms(events):
     """Union of the card's kernel intervals, in ms."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -1627,6 +1996,11 @@ def main():
                                  'kernels: %s' % r)
     del walk, idx
 
+    phase('Fenwick/coder kernels vs plain versions')
+    # one dependent shared-memory load, from the chase phase's probe
+    smem_ns = chase['smem_floor_ms'] * 1e6 / chase['steps']
+    scans = scan_phase(s5, dev, smem_ns)
+
     phase('main path: sample5x4 -9 encode')
     for name in _cuda.launches:
         _cuda.launches[name] = 0
@@ -1743,7 +2117,9 @@ def main():
         cz, s5x4, s5x4_comp, launches, dec_launches, extra=[
             ('mesh EOF (NCCL, 1 rank)', lambda m: mesh_eof_phase(m, s5x4)),
             ('CP rotation sort (NCCL, 1 rank)',
-             lambda m: cp_sort_phase(m, s5x4))])
+             lambda m: cp_sort_phase(m, s5x4)),
+            ('mesh BWTC-P (NCCL, 1 rank)',
+             lambda m: mesh_bwtcp_phase(cz, m, s5x4))])
 
     phase('parallel host decode')
     from compressjs_tpu_torch.parallel.decode import block_index
@@ -1776,6 +2152,12 @@ def main():
 
     phase('DeviceBWTCEncoder')
     bwtc = bwtc_phase(cz, s5, s5x4)
+
+    phase('BWTC-P on the card')
+    bwtcp = bwtcp_phase(cz, s5x4)
+
+    phase('BWTC-L on the card')
+    bwtcl = bwtcl_phase(cz, s5x4)
 
     phase('reference ties')
     ref_ties = ref_ties_phase(cz, s5x4)
@@ -1849,9 +2231,15 @@ def main():
 
     # every path driven with the counts set to 0 just before it: the main
     # encode and decode and the new paths
-    path_launches = dict(mesh_launches, compress_file_device=launches,
-                         decompress_file_device=dec_launches,
-                         hetero_compress_bzip2=het_launches)
+    path_launches = dict(
+        mesh_launches, compress_file_device=launches,
+        decompress_file_device=dec_launches,
+        hetero_compress_bzip2=het_launches,
+        bwtcp_compress_device=bwtcp['launches'],
+        bwtcl_compress_device=bwtcl['encode_launches'],
+        bwtcl_decompress_device=bwtcl['decode_launches'],
+        mesh_compress_bwtcp=mesh_extra['mesh BWTC-P (NCCL, 1 rank)'][
+            'launches'])
 
     def total(name):
         return sum(p[name] for p in path_launches.values())
@@ -1985,6 +2373,37 @@ def main():
          'zipf_ms': undo_rand['ms'],
          'ptxas': {k: v for k, v in frames.items() if 'undo' in k}},
     ]
+    # the scan kernels: times, plain times and bounds at BWTC-L's 128
+    # lanes of sample5's first -9 block (every step through the plain
+    # versions too), and the kernels alone on its whole BWTC-P lane
+    checked = [scans[k] for k in ('bwtcl_lanes', 'bwtcp_lane_4096',
+                                  'random_0x400')]
+    lanes_l, lane_p = scans['bwtcl_lanes'], scans['bwtcp_lane_full']
+    for name, key, replaces in (
+            ('fenwick_encode', 'encode',
+             'compressjs_tpu/ops/device_model.py:211 (lax.scan :276, no '
+             'TPU kernel)'),
+            ('range_encode', 'coder',
+             'compressjs_tpu/ops/device_coder.py:63 (lax.scan :108, no TPU '
+             'kernel)'),
+            ('fenwick_decode', 'decode',
+             'compressjs_tpu/ops/device_model.py:118 (lax.scan :206, with '
+             'device_coder.py:142-195; no TPU kernel)')):
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'compressjs_tpu_torch/csrc/%s.cu' % name,
+            'replaces': replaces, 'launches': total(name),
+            'launches_by_path': by_path(name),
+            'max_abs_err': max(r[key + '_err'] for r in checked),
+            'ms': lanes_l[key + '_ms'], 'plain_ms': lanes_l[key + '_plain_ms'],
+            'bound_ms': lanes_l[key + '_bound_ms'],
+            'bound_by': lanes_l[key + '_bound_by'], 'library_ms': None,
+            'chain_floor_ms': lanes_l[key + '_chain_floor_ms'],
+            'bwtcp_lane_ms': lane_p[key + '_ms'],
+            'bwtcp_lane_bound_ms': lane_p[key + '_bound_ms'],
+            'bwtcp_lane_chain_floor_ms': lane_p[key + '_chain_floor_ms'],
+            'bwtcp_lane_4096_ms': scans['bwtcp_lane_4096'][key + '_ms'],
+            'random_0x400_ms': scans['random_0x400'][key + '_ms']})
     print('encode modes: ' + json.dumps(mode_times))
     print('new paths: ' + json.dumps({
         'wall_s': new_times, 'hetero_last_stats': het_timed_stats,
@@ -1995,6 +2414,11 @@ def main():
         'mesh_eof': mesh_extra['mesh EOF (NCCL, 1 rank)'],
         'cp_sort': mesh_extra['CP rotation sort (NCCL, 1 rank)'],
         'ref_ties_bytes': ref_ties, 'card': card, 'host_cpu': host_cpu}))
+    print('BWTC-P/L paths: ' + json.dumps({
+        'scan_kernels': scans, 'bwtcp_compress_device': bwtcp,
+        'bwtcl': bwtcl,
+        'mesh_compress_bwtcp': mesh_extra['mesh BWTC-P (NCCL, 1 rank)'],
+        'card': card, 'host_cpu': host_cpu}))
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -29,23 +29,37 @@ kernel's plain version runs instead):
   ``parallel.sharded_sort.sharded_cyclic_suffix_sort`` splits one
   block's rotation sort over the ranks (O(n/d) on each).
 
+* `bwtcp_compress_device` encodes the BWTC-P format (one range coder a
+  block) and `bwtcl_compress_device` / `bwtcl_decompress_device` the
+  lane-interleaved BWTC-L format (128 coders a block) with the whole
+  block body on the GPU, the adaptive Fenwick model and the range coder
+  included; `mesh_compress_bwtcp` shards BWTC-P's transforms over a
+  mesh.  ``BWTCP`` and ``BWTCL`` are the host codecs (copies of the JAX
+  package's).
+
 On the host only: `decompress_file_parallel` decodes whole blocks on a
 thread pool with the native block decoder.
 
 The host stages run in a native runtime (``native``, C++ built by g++ at
 first use).  Hand-written CUDA kernels carry the MTF scan, the Huffman
-length allocator, the windowed map composition, the selector chase and
-the MTF undo.  The package imports neither JAX nor compressjs_tpu.
+length allocator, the windowed map composition, the selector chase, the
+MTF undo, and the Fenwick model's encode and decode scans and the range
+coder's.  The package imports neither JAX nor compressjs_tpu.
 """
 
+from .host.bwtcl import BWTCL
+from .host.bwtcp import BWTCP
 from .parallel.decode import (decompress_file_device, decompress_file_mesh,
                               decompress_file_parallel)
 from .parallel.hetero import hetero_compress_bzip2
-from .parallel.mesh import make_mesh, mesh_compress_bzip2
+from .parallel.mesh import make_mesh, mesh_compress_bwtcp, mesh_compress_bzip2
 from .parallel.pipeline import (DeviceBWTCEncoder, DeviceBzip2Encoder,
-                                compress_file_device)
+                                bwtcl_compress_device, bwtcl_decompress_device,
+                                bwtcp_compress_device, compress_file_device)
 
-__all__ = ['DeviceBWTCEncoder', 'DeviceBzip2Encoder', 'compress_file_device',
+__all__ = ['BWTCL', 'BWTCP', 'DeviceBWTCEncoder', 'DeviceBzip2Encoder',
+           'bwtcl_compress_device', 'bwtcl_decompress_device',
+           'bwtcp_compress_device', 'compress_file_device',
            'decompress_file_device', 'decompress_file_mesh',
            'decompress_file_parallel', 'hetero_compress_bzip2', 'make_mesh',
-           'mesh_compress_bzip2']
+           'mesh_compress_bwtcp', 'mesh_compress_bzip2']

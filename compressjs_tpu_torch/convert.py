@@ -1,6 +1,6 @@
 """What crosses from the JAX package to this one: a compressor has no
-weights, so it is each block's inputs, the encoder's constants and the
-decoder's tables."""
+weights, so it is each block's inputs, the encoder's constants, the
+decoder's tables and the range coders' states."""
 
 from __future__ import annotations
 
@@ -25,3 +25,18 @@ def decode_tables(limits, bases, perms, mins, device):
     these are what both packages are fed."""
     return tuple(torch.from_numpy(np.array(x, dtype=np.int32))
                  .to(device) for x in (limits, bases, perms, mins))
+
+
+def coder_states(states, device):
+    """Exported host range coder states, (L, 5) encoder states
+    (``RangeCoder.export_enc_state``: low, range, buffer, help,
+    bytecount) or (L, 4) decoder states (``export_dec_state``: low,
+    range, buffer, read position), int64 numpy (either package's coder),
+    as this package's int64 tensor on `device`: what
+    ``ops.device_coder.batched_range_encode(init_state=)`` and
+    ``ops.device_model.fenwick_decode_streams`` take."""
+    st = np.asarray(states, dtype=np.int64)
+    if st.ndim != 2 or st.shape[1] not in (4, 5):
+        raise ValueError('coder states of shape (L, 4) or (L, 5), not %s'
+                         % (st.shape,))
+    return torch.from_numpy(np.ascontiguousarray(st)).to(device)

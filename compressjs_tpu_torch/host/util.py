@@ -32,6 +32,12 @@ def varint_bytes(n):
     return list(reversed(out))
 
 
+def write_unsigned_number(output, n):
+    """Write the varint of n >= 0 (`varint_bytes`) to `output`."""
+    for b in varint_bytes(n):
+        output.write_byte(b)
+
+
 def fls(v):
     """Find-last-set: the position of the most significant set bit,
     fls(0) == 0, fls(1) == 1."""

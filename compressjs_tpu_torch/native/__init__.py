@@ -159,6 +159,12 @@ def _bind(lib):
     lib.cz_bwtc_decode_block.argtypes = [_p_u8, _i64, _p_i64, _i32, _i32,
                                          _p_u8, _i64]
     lib.cz_bwtc_decode_block.restype = _i64
+    lib.cz_order0_fenwick_encode.argtypes = [_p_u8, _i64, _i32, _i32,
+                                             _p_i64, _p_u8]
+    lib.cz_order0_fenwick_encode.restype = _i64
+    lib.cz_order0_fenwick_decode.argtypes = [_p_u8, _i64, _p_i64, _i32,
+                                             _p_u8, _i64]
+    lib.cz_order0_fenwick_decode.restype = _i64
     return lib
 
 
@@ -469,3 +475,35 @@ def bwtc_decode_block(data, dec_state, asize, fast, length):
     if r < 0:
         raise ValueError('BWTC block decode overrun')
     return b
+
+
+def order0_fenwick_encode(data, size, eof_sym, enc_state):
+    """Range-code the symbols `data` (uint8, each below `size`), then
+    `eof_sym` where it is >= 0, through one fresh Fenwick model of `size`
+    symbols (max_prob 0xFF00, increment 0x100) on the coder whose state
+    enc_state (int64[5], see ``host.range_coder``) holds and which this
+    call updates.  Returns the bytes written."""
+    data = _u8(data)
+    if size < 1 or eof_sym >= size or (
+            data.shape[0] and int(data.max()) >= size):
+        raise ValueError('order0_fenwick_encode: a symbol outside the '
+                         'model\'s %d' % size)
+    # a symbol costs at most two coder steps of at most 16 bits each
+    out = np.empty(data.shape[0] * 3 + 4096, dtype=np.uint8)
+    n = lib().cz_order0_fenwick_encode(data, data.shape[0], size, eof_sym,
+                                       enc_state, out)
+    return out[:n]
+
+
+def order0_fenwick_decode(data, dec_state, size, n):
+    """Decode `n` symbols (uint8) of an `order0_fenwick_encode` stream
+    from `data` on the coder whose state dec_state (int64[5]: low,
+    range, buffer, the read position) holds; updates it."""
+    data = _u8(data)
+    if not 1 <= size <= 256:
+        raise ValueError('order0_fenwick_decode: a model of %d symbols'
+                         % size)
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_order0_fenwick_decode(data, data.shape[0], dec_state, size,
+                                   out, n)
+    return out

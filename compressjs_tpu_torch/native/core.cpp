@@ -12,8 +12,9 @@
 // cz_selector_mtf, cz_bwt_cyclic, cz_mtf_rle2, cz_group_costs,
 // cz_chunk_freqs, cz_payload_pack, cz_rle1_encode, cz_bz2_decode_block,
 // cz_bz2_block_full, cz_inverse_bwt, cz_rle1_decode, cz_bwt_eof,
-// cz_inverse_bwt_eof, cz_mtf_encode, cz_mtf_decode, cz_bwtc_encode_block
-// and cz_bwtc_decode_block.  Built by g++ at first use and loaded with
+// cz_inverse_bwt_eof, cz_mtf_encode, cz_mtf_decode, cz_bwtc_encode_block,
+// cz_bwtc_decode_block, cz_order0_fenwick_encode and
+// cz_order0_fenwick_decode.  Built by g++ at first use and loaded with
 // ctypes (native/__init__.py).
 
 #include <cstdint>
@@ -1811,6 +1812,39 @@ int64_t cz_bwtc_decode_block(const uint8_t* in, int64_t in_len,
       b[i++] = (uint8_t)(c - 1);
     }
   }
+  d.store(dec_state);
+  return 0;
+}
+
+// Order-0 coding of a whole symbol stream through one fresh Fenwick model
+// of `size` symbols (a BWTC-L lane).  data: the symbols, each below
+// `size` and below 256; eof_sym >= 0 appends that symbol.  enc_state:
+// int64[5] in/out.  Returns bytes written to `out`.
+int64_t cz_order0_fenwick_encode(const uint8_t* data, int64_t n,
+                                 int32_t size, int32_t eof_sym,
+                                 int64_t* enc_state, uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  rc::Fenwick fen(size, 0xFF00, 0x100);
+  for (int64_t i = 0; i < n; i++) fen.encode(e, data[i]);
+  if (eof_sym >= 0) fen.encode(e, eof_sym);
+  e.store(enc_state);
+  return e.outlen;
+}
+
+// Decode n symbols of such a stream into out.  dec_state: int64[5]
+// in/out ([low, range, buffer, pos]).  Returns 0.
+int64_t cz_order0_fenwick_decode(const uint8_t* in, int64_t in_len,
+                                 int64_t* dec_state, int32_t size,
+                                 uint8_t* out, int64_t n) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  rc::Fenwick fen(size, 0xFF00, 0x100);
+  for (int64_t i = 0; i < n; i++) out[i] = (uint8_t)fen.decode(d);
   d.store(dec_state);
   return 0;
 }

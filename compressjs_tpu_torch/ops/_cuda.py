@@ -22,7 +22,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu', 'compose_windowed.cu',
-           'selector_chase.cu', 'mtf_undo.cu', 'probes.cu')
+           'selector_chase.cu', 'mtf_undo.cu', 'probes.cu',
+           'fenwick_encode.cu', 'range_encode.cu', 'fenwick_decode.cu')
+# headers the sources include (part of the build's hash)
+HEADERS = ('fenwick_tree.cuh',)
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 CFLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                  '-Xptxas', '-v']
@@ -35,7 +38,8 @@ _lib = None
 # them where it launches them)
 launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'code_lengths': 0,
             'compose_windowed': 0, 'selector_chase': 0, 'mtf_undo': 0,
-            'chase_probe': 0, 'smem_chain_probe': 0, 'stage_probe': 0}
+            'chase_probe': 0, 'smem_chain_probe': 0, 'stage_probe': 0,
+            'fenwick_encode': 0, 'range_encode': 0, 'fenwick_decode': 0}
 # what the last build did: wall seconds (0 if reused) and nvcc's messages
 # (the -Xptxas -v register and shared-memory lines, kept beside the
 # library for a later reuse)
@@ -56,7 +60,7 @@ def _build(sources=SOURCES, defines=()):
     flags = CFLAGS + ['-D' + d for d in defines]
     srcs = [os.path.join(CSRC, s) for s in sources]
     h = hashlib.sha256(' '.join(flags).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(CSRC, x) for x in HEADERS]:
         with open(s, 'rb') as f:
             h.update(f.read())
     out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
@@ -131,6 +135,15 @@ def _bind(lib):
     lib.cz_mtf_undo_prefix.restype = i32
     lib.cz_mtf_undo_decode.argtypes = [p, p, p, p, i64, i32, p]
     lib.cz_mtf_undo_decode.restype = i32
+    lib.cz_fenwick_encode.argtypes = [p, p, p, i32, i64, i32, i32, i32, p,
+                                      p, p, p, p, p]
+    lib.cz_fenwick_encode.restype = i32
+    lib.cz_range_encode.argtypes = [p, p, p, p, p, i32, i64, p, i64, p, p,
+                                    p]
+    lib.cz_range_encode.restype = i32
+    lib.cz_fenwick_decode.argtypes = [p, i64, p, p, p, i32, i64, i32, i32,
+                                      i32, p, p, p]
+    lib.cz_fenwick_decode.restype = i32
     return lib
 
 

@@ -46,6 +46,7 @@ from ..host.rle1 import rle1_decode
 from ..ops.device_huffman import MAX_CODE_BITS, block_bytes, bwt_column, \
     huffman_walk_dev, tables_for_device
 from .mesh import make_mesh, sharded_ragged_inverse_bwt
+from .pipeline import _as_u8, _device
 
 # The most bits a block takes from its magic to the end of its EOB code.
 # The header: magic 48, block CRC 32, randomised flag 1, origPtr 24,
@@ -142,12 +143,6 @@ def _empty_stream(data):
     return b''
 
 
-def _as_stream(data):
-    return np.frombuffer(bytes(data), dtype=np.uint8) \
-        if not isinstance(data, np.ndarray) \
-        else np.ascontiguousarray(data, dtype=np.uint8)
-
-
 def _emit(result, output):
     if output is None:
         return result
@@ -162,11 +157,8 @@ def decompress_file_device(data, output=None, device='cuda'):
     bytes, or writes them to `output` (a binary file object) and returns
     `output`.  Raises ValueError on a stream that does not decode (bad
     header, broken block chain, block or stream CRC mismatch)."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('decompress_file_device: CUDA is not available; '
-                           "pass device='cpu' to run on the CPU")
-    data = _as_stream(data)
+    device = _device(device, 'decompress_file_device')
+    data = _as_u8(data)
     parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)
@@ -278,7 +270,7 @@ def _check_stream_crc(data, end, crcs):
 def block_index(data):
     """Every bit position of the block magic in `data`: the candidate
     block starts (each points at the magic itself)."""
-    return _scan_magic(_as_stream(data), MAGIC_BYTES)
+    return _scan_magic(_as_u8(data), MAGIC_BYTES)
 
 
 def _parse_at(data, pos, dbuf_size):
@@ -342,7 +334,7 @@ def decompress_file_parallel(input_data, output=None, n_workers=None,
     if executor not in ('thread', 'process'):
         raise ValueError("executor must be 'thread' or 'process', not %r"
                          % (executor,))
-    data = _as_stream(input_data)
+    data = _as_u8(input_data)
     parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)
@@ -390,7 +382,7 @@ def decompress_file_mesh(input_data, output=None, mesh=None, n_workers=None,
         raise ValueError("entropy must be 'host' or 'device', not %r"
                          % (entropy,))
     mesh = mesh if mesh is not None else make_mesh()
-    data = _as_stream(input_data)
+    data = _as_u8(input_data)
     parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)

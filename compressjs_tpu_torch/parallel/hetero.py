@@ -56,8 +56,8 @@ from ..host.bwt import bwtransform2
 from ..host.crc32 import crc32_bzip2, stream_crc_combine
 from ..host.mtf_rle2 import mtf_rle2
 from ..host.rle1 import rle1_encode
-from .pipeline import DeviceBzip2Encoder, _block_bits, _block_meta, \
-    _finish_block
+from .pipeline import DeviceBzip2Encoder, _as_u8, _block_bits, \
+    _block_meta, _finish_block
 
 
 class _Scheduler:
@@ -262,9 +262,7 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
                                "CPU, or device=None for the host alone")
     if not 1 <= level <= 9:
         raise ValueError('Invalid block size multiplier')
-    data = np.frombuffer(bytes(data), dtype=np.uint8) \
-        if not isinstance(data, np.ndarray) \
-        else np.ascontiguousarray(data, dtype=np.uint8)
+    data = _as_u8(data)
     block_size = level * 100000 - 19
     blocks = []   # grows as the feeder splits (appends under the GIL;
     #               workers only index entries the scheduler handed out)

@@ -32,8 +32,8 @@ from ..ops.block_decode import (inverse_bwt_block, inverse_bwt_block_masked,
                                 inverse_bwt_eof_block)
 from ..ops.block_kernels import bwt_eof_block, encode_block_core
 from ..ops.device_entropy import GROUP_SIZE, encode_block_full
-from .pipeline import (_block_meta, _device_block_header, _finish_block,
-                       _ref_ties_default, _split_blocks)
+from .pipeline import (_as_u8, _block_meta, _device_block_header,
+                       _finish_block, _ref_ties_default, _split_blocks)
 
 # NCCL and gloo move no int16: such a tensor travels as int32 and comes
 # back in its own type
@@ -236,9 +236,7 @@ def mesh_compress_bzip2(mesh, data, level=9):
     variable, as the JAX mesh's host tail does."""
     if not 1 <= level <= 9:
         raise ValueError('Invalid block size multiplier')
-    data = np.frombuffer(bytes(data), dtype=np.uint8) \
-        if not isinstance(data, np.ndarray) \
-        else np.ascontiguousarray(data, dtype=np.uint8)
+    data = _as_u8(data)
     block_size = level * 100000 - 19
     blocks = _split_blocks(data, block_size)
     metas = [_block_meta(block) for block, _ in blocks]
@@ -301,6 +299,32 @@ def sharded_bwt_eof(mesh, blocks):
     U = sh.gather([r[0] for r in res], (n,), torch.uint8)
     pidx = sh.gather([r[1] for r in res], (), torch.int64)
     return U, pidx
+
+
+def mesh_compress_bwtcp(mesh, data, level=9):
+    """BWTC-P encode with the full blocks' EOF-terminated BWTs sharded over
+    `mesh` (`sharded_bwt_eof`: each rank transforms its own share) and the
+    rest the host codec: each block's coder on a host thread and the
+    container, ``host.bwtcp.BWTCP.compress_file`` with the transforms
+    handed in through its `_PRE_BWT` seam.  As in the JAX package's
+    function, a stream of one full block transforms it on the host.
+    Every rank is called with the same data and returns the same bytes,
+    byte for byte the host codec's."""
+    from ..host import bwtcp
+    data = _as_u8(data)
+    bs = bwtcp._level_of(level) * 100000
+    n_full = len(data) // bs
+    pre = {}
+    if n_full > 1:
+        U, pidx = sharded_bwt_eof(mesh, data[:n_full * bs].reshape(n_full,
+                                                                   bs))
+        U, pidx = U.cpu().numpy(), pidx.cpu().tolist()
+        pre = {i: (U[i], pidx[i]) for i in range(n_full)}
+    token = bwtcp._PRE_BWT.set(pre)
+    try:
+        return bwtcp.BWTCP.compress_file(data, None, level)
+    finally:
+        bwtcp._PRE_BWT.reset(token)
 
 
 def sharded_ragged_inverse_bwt(mesh, Us, ns, pidxs):

@@ -36,6 +36,16 @@ default grouping, as the JAX encoder's do.
 
 `DeviceBWTCEncoder` is the BWTC codec (``host.bwtc``) with the full
 blocks' EOF-terminated BWT on the device.
+
+`bwtcp_compress_device`, `bwtcl_compress_device` and
+`bwtcl_decompress_device` run the BWTC-P and BWTC-L codecs' whole block
+bodies on the device, the adaptive Fenwick model and the range coder
+included (``ops.device_model``, ``ops.device_coder``,
+``ops.device_lane``); the host writes the headers and the container.
+They take the JAX package's routes of the formats: levels <= 5 (BWTC-P's
+DefSum model) and short tail blocks go to the host codecs, and a block
+whose device result passes its caps is coded again on the host
+(``last_stats['overflow_blocks']`` counts those).
 """
 
 from __future__ import annotations
@@ -47,16 +57,25 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..convert import block_inputs
+from ..convert import block_inputs, coder_states
 from ..host import bwt as host_bwt
 from ..host import bwtc as host_bwtc
+from ..host import bwtcl as host_bwtcl
+from ..host import bwtcp as host_bwtcp
 from ..host import huffman_stages as hs
 from ..host.bits import SQRTPI, WHOLEPI, BitArrayWriter, BitWriter
 from ..host.bwt import bwtransform2
 from ..host.crc32 import crc32_bzip2, stream_crc_combine
 from ..host.mtf_rle2 import mtf_rle2
+from ..host.range_coder import RangeCoder
 from ..host.rle1 import rle1_encode
+from ..host.stream import (ArrayInputStream, BufferStream,
+                           coerce_output_stream)
+from ..host.util import compress_file_helper, read_unsigned_number
 from ..ops import block_kernels as bk
+from ..ops import device_coder as dc
+from ..ops import device_lane as dl
+from ..ops import device_model as dm
 from ..ops.device_entropy import GROUP_SIZE, encode_block_full
 from .profiling import stage_timer
 
@@ -77,6 +96,22 @@ def _split_blocks(data, block_size):
         # count-byte back-off defers a byte), so stop by input position
         start += consumed
     return out
+
+
+def _device(device, what):
+    """torch.device(device); raises for 'cuda' without a card."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("%s: CUDA is not available; pass device='cpu' to "
+                           'run on the CPU' % what)
+    return dev
+
+
+def _as_u8(data):
+    """bytes-like or array `data` as a contiguous uint8 array."""
+    return np.frombuffer(bytes(data), dtype=np.uint8) \
+        if not isinstance(data, np.ndarray) \
+        else np.ascontiguousarray(data, dtype=np.uint8)
 
 
 def _block_meta(block):
@@ -181,10 +216,7 @@ class DeviceBzip2Encoder:
         if mode not in MODES:
             raise ValueError('mode must be one of %s, not %r'
                              % (', '.join(MODES), mode))
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError('DeviceBzip2Encoder: CUDA is not available; '
-                               "pass device='cpu' to run on the CPU")
+        self.device = _device(device, 'DeviceBzip2Encoder')
         self.level = level
         self.block_size = level * 100000 - 19
         self.mode = mode
@@ -233,9 +265,7 @@ class DeviceBzip2Encoder:
         """Compress bytes-like or uint8 `data`.  Returns the stream as
         bytes, or writes it to `output` (a binary file object) and
         returns `output`."""
-        data = np.frombuffer(bytes(data), dtype=np.uint8) \
-            if not isinstance(data, np.ndarray) \
-            else np.ascontiguousarray(data, dtype=np.uint8)
+        data = _as_u8(data)
         blocks = _split_blocks(data, self.block_size)
         metas = [_block_meta(block) for block, _ in blocks]
         full_rows = [i for i, (b, _) in enumerate(blocks)
@@ -357,10 +387,7 @@ class DeviceBWTCEncoder:
     def __init__(self, level=9, device='cuda'):
         if not 1 <= level <= 9:
             raise ValueError('invalid level')
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError('DeviceBWTCEncoder: CUDA is not available; '
-                               "pass device='cpu' to run on the CPU")
+        self.device = _device(device, 'DeviceBWTCEncoder')
         self.level = level
         self.block_size = level * 100000
 
@@ -375,9 +402,7 @@ class DeviceBWTCEncoder:
         see ``host.stream``) and returns `output`.  No worker outlives
         the call: the device work still queued is dropped and the block
         that runs is waited for."""
-        data = np.frombuffer(bytes(data), dtype=np.uint8) \
-            if not isinstance(data, np.ndarray) \
-            else np.ascontiguousarray(data, dtype=np.uint8)
+        data = _as_u8(data)
         bs = self.block_size
 
         # the codec's transform pool calls the hook from several threads
@@ -407,3 +432,215 @@ class DeviceBWTCEncoder:
         finally:
             host_bwtc._BWT_HOOK.reset(token)
             pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _container(magic, level, payloads, data, output):
+    """The codec's container around the block streams (the host codecs'
+    helper, so the bytes are theirs by construction)."""
+    def guts(in_stream, out_stream, file_size, props, final_byte):
+        host_bwtcp.write_container_body(out_stream, level, payloads)
+    return compress_file_helper(magic, guts)(data, output, level)
+
+
+def _bwtcp_tok_cap(bs):
+    """Tokens a BWTC-P lane may emit on the device: every token writes at
+    least one byte, so a block stream of up to bs + bs/4 + 64 bytes fits;
+    a block that passes it is coded again on the host."""
+    return bs + (bs >> 2) + 64
+
+
+def _bwtcp_group(blocks, level, dev):
+    """The full blocks of one dispatch as BWTC-P block streams, or None
+    for a block whose tokens or bytes pass their caps.  Per block the
+    card runs the EOF BWT, MTF and RLE2; the host codes the header on the
+    block's fresh coder and hands its state over; then one launch of each
+    scan kernel codes every block's body as a lane."""
+    bs = blocks[0].shape[0]
+    heads, states, Ns, rows, counts = [], [], [], [], []
+    for b in blocks:
+        used, asize, remap = _block_meta(b)
+        U, pidx = bk.bwt_eof_block(torch.from_numpy(b.copy()).to(dev), bs)
+        out = BufferStream()
+        enc = RangeCoder(out)
+        enc.encode_start(0, 0)
+        host_bwtcp._write_header(enc, level, bs, int(pidx), used)
+        heads.append(out.get_buffer())
+        states.append(enc.export_enc_state())
+        Ns.append(asize + 2)              # model size asize + 1
+        dense = torch.from_numpy(remap).to(dev)[U.to(torch.int64)]
+        syms, cnt, _ = bk.rle2_encode(bk.mtf_encode(dense.to(torch.int32),
+                                                    bs), bs, 0)
+        rows.append(syms)
+        counts.append(cnt)
+    T = bs + 1
+    syms = torch.stack(rows).to(torch.int32)
+    valid = torch.arange(T, device=dev)[None, :] < \
+        (torch.stack(counts) - 1)[:, None]     # without the EOB slot
+    del rows
+    sy, lt, tot, v = dm.fenwick_encode_streams(
+        syms, valid, torch.tensor(Ns, dtype=torch.int32, device=dev),
+        dl.MAX_N, host_bwtcp.F_PROB_MAX, host_bwtcp.F_PROB_INCR)
+    del syms, valid
+    tok_cap = _bwtcp_tok_cap(bs)
+    tokens, tok_n, nbytes = dc.batched_range_encode(
+        sy, lt, tot, v, None, None, tok_cap,
+        init_state=coder_states(np.stack(states), dev))
+    del sy, lt, tot, v
+    out_cap = bs + (bs >> 1) + 4096
+    byts, lens = dc.token_bytes(tokens, tok_n, nbytes, out_cap)
+    del tokens
+    tok_n, lens = tok_n.cpu().tolist(), lens.cpu().tolist()
+    byts = byts[:, :min(max(lens), out_cap)].cpu().numpy()
+    return [None if tok_n[k] > tok_cap or lens[k] > out_cap else
+            np.concatenate([heads[k], byts[k, :lens[k]]])
+            for k in range(len(blocks))]
+
+
+def bwtcp_compress_device(data, output=None, level=9, batch=8,
+                          device='cuda'):
+    """BWTC-P encode with each full block's whole body on `device`
+    ('cuda' unless the caller asks for 'cpu'): EOF BWT, MTF, RLE2, the
+    adaptive Fenwick model and the range coder, `batch` blocks a
+    dispatch as the model's and coder's lanes, each continuing the coder
+    the host started with the block's header.  Levels <= 5 (DefSum
+    blocks) take the host codec, and so do the short tail block and a
+    block that passes its token or byte cap.  Byte for byte
+    ``host.bwtcp.BWTCP.compress_file``.  Returns the stream (uint8
+    array), or writes it to `output` (a stream with write_byte) and
+    returns it.  ``bwtcp_compress_device.last_stats`` counts the blocks
+    of the last call by route."""
+    dev = _device(device, 'bwtcp_compress_device')
+    level = host_bwtcp._level_of(level)
+    data = _as_u8(data)
+    bs = level * 100000
+    blocks = host_bwtcp.split_blocks(data, bs)
+    stats = {'device_blocks': 0, 'host_blocks': 0, 'overflow_blocks': 0}
+    bwtcp_compress_device.last_stats = stats
+    if level <= 5:
+        stats['host_blocks'] = len(blocks)
+        return host_bwtcp.BWTCP.compress_file(data, output, level)
+    full = [i for i, b in enumerate(blocks) if b.shape[0] == bs]
+    payloads = [None] * len(blocks)
+    for g in range(0, len(full), batch):
+        idxs = full[g:g + batch]
+        for i, p in zip(idxs, _bwtcp_group([blocks[i] for i in idxs], level,
+                                           dev)):
+            payloads[i] = p
+            stats['device_blocks' if p is not None
+                  else 'overflow_blocks'] += 1
+    for i, b in enumerate(blocks):
+        if payloads[i] is None:
+            if b.shape[0] != bs:
+                stats['host_blocks'] += 1
+            payloads[i] = host_bwtcp._encode_block(b, level)
+    return _container(host_bwtcp.MAGIC, level, payloads, data, output)
+
+
+bwtcp_compress_device.last_stats = {}
+
+
+def bwtcl_compress_device(data, output=None, level=9, lanes=None,
+                          device='cuda'):
+    """BWTC-L encode with each full block's whole body on `device`
+    ('cuda' unless the caller asks for 'cpu'): EOF BWT, MTF, RLE2 and the
+    `lanes` (default ``host.bwtcl.LANES``) Fenwick models and range
+    coders (``ops.device_lane.encode_block_lanes``); the host writes the
+    headers and the container.  The short tail block, a block of fewer
+    RLE2 symbols than lanes (the format records fewer lanes for it) and
+    a block that passes its caps take the host codec.  Byte for byte
+    ``host.bwtcl.BWTCL.compress_file``.  Returns as
+    `bwtcp_compress_device`; ``bwtcl_compress_device.last_stats`` counts
+    the blocks of the last call by route."""
+    dev = _device(device, 'bwtcl_compress_device')
+    lanes = lanes or host_bwtcl.LANES
+    level = host_bwtcp._level_of(level)
+    data = _as_u8(data)
+    bs = level * 100000
+    _, tok_cap, lane_cap = dl.lane_caps(bs, lanes)
+    flat_cap = bs + (bs >> 1) + 4096
+    stats = {'device_blocks': 0, 'host_blocks': 0, 'overflow_blocks': 0}
+    bwtcl_compress_device.last_stats = stats
+    payloads = []
+    for b in host_bwtcp.split_blocks(data, bs):
+        if b.shape[0] != bs:
+            stats['host_blocks'] += 1
+            payloads.append(host_bwtcl.encode_block(b, lanes))
+            continue
+        used, asize, remap = _block_meta(b)
+        pidx, S, lens, flat, total, max_tok = dl.encode_block_lanes(
+            torch.from_numpy(b.copy()).to(dev), bs, lanes,
+            torch.from_numpy(remap).to(dev).to(torch.int64), asize)
+        S, total, max_tok = int(S), int(total), int(max_tok)
+        lens = lens.cpu().tolist()
+        if S < lanes:
+            stats['host_blocks'] += 1
+            payloads.append(host_bwtcl.encode_block(b, lanes))
+        elif max_tok > tok_cap or total > flat_cap or max(lens) > lane_cap:
+            stats['overflow_blocks'] += 1
+            payloads.append(host_bwtcl.encode_block(b, lanes))
+        else:
+            stats['device_blocks'] += 1
+            payloads.append(np.concatenate([
+                host_bwtcl.block_head(bs, int(pidx), S, lanes, used, lens),
+                flat[:total].cpu().numpy()]))
+    return _container(host_bwtcl.MAGIC, level, payloads, data, output)
+
+
+bwtcl_compress_device.last_stats = {}
+
+
+def bwtcl_decompress_device(data, output=None, device='cuda'):
+    """BWTC-L decode with each full block's body on `device` ('cuda'
+    unless the caller asks for 'cpu'): the lanes' Fenwick models and range
+    decoders, RLE2 and MTF undo and the inverse EOF BWT
+    (``ops.device_lane.decode_block_lanes``), at any lane count; the host
+    parses the container and the headers.  A short block, and a block
+    whose lane streams pass the lane byte cap, take the host decoder.
+    Returns the bytes (uint8 array), or writes them to `output` and
+    returns it; raises ValueError on a bad magic or a block that does not
+    expand to its length.  ``bwtcl_decompress_device.last_stats`` counts
+    the blocks of the last call by route."""
+    dev = _device(device, 'bwtcl_decompress_device')
+    ins = ArrayInputStream(_as_u8(data))
+    for ch in host_bwtcl.MAGIC:
+        if ins.read_byte() != ord(ch):
+            raise ValueError('bad magic')
+    read_unsigned_number(ins)                     # file size + 1
+    level, payloads = host_bwtcp.read_container_body(ins)
+    bs = level * 100000
+    stats = {'device_blocks': 0, 'host_blocks': 0, 'overflow_blocks': 0}
+    bwtcl_decompress_device.last_stats = stats
+    results = []
+    for p in payloads:
+        length, pidx, S, lanes, used, lane_payloads = \
+            host_bwtcl.parse_block_header(p)
+        lane_cap = dl.lane_caps(bs, lanes)[2]
+        if length != bs:
+            stats['host_blocks'] += 1
+            results.append(host_bwtcl.decode_block(p))
+            continue
+        if max(len(x) for x in lane_payloads) > lane_cap:
+            stats['overflow_blocks'] += 1
+            results.append(host_bwtcl.decode_block(p))
+            continue
+        paymat = np.zeros((lanes, lane_cap), dtype=np.uint8)
+        for l, lp in enumerate(lane_payloads):
+            paymat[l, :len(lp)] = lp
+        alphabet = np.flatnonzero(used)
+        sym_map = np.zeros(256, dtype=np.int64)
+        sym_map[:len(alphabet)] = alphabet
+        out, total = dl.decode_block_lanes(
+            torch.from_numpy(paymat).to(dev), bs, lanes, S, pidx,
+            len(alphabet), torch.from_numpy(sym_map).to(dev))
+        if int(total) != bs:
+            raise ValueError('BWTC-L block expands to %d bytes, not %d'
+                             % (int(total), bs))
+        stats['device_blocks'] += 1
+        results.append(out.cpu().numpy())
+    o = coerce_output_stream(output)
+    for r in results:
+        o.stream.write(r, 0, len(r))
+    return o.retval
+
+
+bwtcl_decompress_device.last_stats = {}

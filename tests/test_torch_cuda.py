@@ -545,3 +545,118 @@ def test_device_bwtc_encoder_on_card(cuda):
     got = bytes(cz.DeviceBWTCEncoder(9, device='cuda').compress(data))
     assert got == bytes(BWTC.compress_file(data, None, 9))
     assert bytes(BWTC.decompress_file(got)) == data
+
+
+def _fenwick_lanes(seed, sizes, T, max_prob, dev):
+    """Ragged zipf lanes of the given model sizes, masked holes in one
+    lane, through the plain encode on the CPU and the kernel on `dev`."""
+    from compressjs_tpu_torch.ops import device_model as dm
+    rng = np.random.default_rng(seed)
+    L = len(sizes)
+    syms = np.zeros((L, T), np.int32)
+    valid = np.zeros((L, T), bool)
+    for l, sz in enumerate(sizes):
+        tl = int(rng.integers(0, T + 1))
+        syms[l, :tl] = np.minimum(rng.zipf(1.2, tl) - 1, sz - 1)
+        syms[l, tl:] = rng.integers(0, sz, T - tl)
+        valid[l, :tl] = True
+    valid[0, ::5] = False
+    Ns = torch.tensor([s + 1 for s in sizes], dtype=torch.int32)
+    args = (torch.from_numpy(syms), torch.from_numpy(valid), Ns)
+    want = dm.fenwick_encode_streams(*args, 258, max_prob, 0x100)
+    before = _cuda.launches['fenwick_encode']
+    got = dm.fenwick_encode_streams(*(a.to(dev) for a in args), 258,
+                                    max_prob, 0x100)
+    assert _cuda.launches['fenwick_encode'] == before + 1
+    return want, got, Ns
+
+
+@pytest.mark.parametrize('max_prob', [0xFF00, 0x400])
+def test_fenwick_encode_kernel_matches_plain(cuda, max_prob):
+    """20 lanes (two blocks of 16), model sizes 1 to 256, a low max_prob
+    for escapes and rescales."""
+    sizes = [256, 1, 3, 40, 200, 255, 17, 2, 90, 9, 30, 31, 32, 33, 100,
+             200, 150, 255, 64, 5]
+    want, got, _ = _fenwick_lanes(1, sizes, 400, max_prob, cuda)
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize('tok_cap', [None, 11])
+def test_range_encode_kernel_matches_plain(cuda, tok_cap):
+    from compressjs_tpu_torch.ops import device_coder as dc
+    want, _, _ = _fenwick_lanes(2, [60, 256, 7, 129], 500, 0xFF00, cuda)
+    init = dc.encoder_states(torch.tensor([0, 5, 255, 9]),
+                             torch.tensor([0, 1, 2, 3]))
+    plain = dc.batched_range_encode(*want, None, None, tok_cap,
+                                    init_state=init)
+    before = _cuda.launches['range_encode']
+    got = dc.batched_range_encode(*(w.to(cuda) for w in want), None, None,
+                                  tok_cap, init_state=init.to(cuda))
+    assert _cuda.launches['range_encode'] == before + 1
+    for p, g in zip(plain, got):
+        assert torch.equal(g.cpu(), p)
+    b, n = dc.token_bytes(*got, 3000)
+    pb, pn = dc.token_bytes(*plain, 3000)
+    assert torch.equal(b.cpu(), pb) and torch.equal(n.cpu(), pn)
+
+
+@pytest.mark.parametrize('max_prob', [0xFF00, 0x400])
+def test_fenwick_decode_kernel_matches_plain(cuda, max_prob):
+    """Lanes coded by the plain encode and coder, each payload row exactly
+    its lane's length where it is the longest (the EOF byte), decoded by
+    the kernel and by the plain version from the free byte's state."""
+    from compressjs_tpu_torch.ops import device_coder as dc
+    from compressjs_tpu_torch.ops import device_model as dm
+    sizes = [256, 3, 40, 200, 17, 2, 90, 255]
+    want, _, Ns = _fenwick_lanes(3, sizes, 600, max_prob, cuda)
+    L = len(sizes)
+    zeros = torch.zeros(L, dtype=torch.int64)
+    byts, lens = dc.token_bytes(*dc.batched_range_encode(*want, zeros,
+                                                         zeros), 5000)
+    byts = byts[:, :int(lens.max())].contiguous()
+    state = torch.stack(dc.dec_start_state(byts, torch.ones(L,
+                                                          dtype=torch.int64)),
+                        1)
+    valid = want[3][:, 1::2]
+    plain, pst = dm.fenwick_decode_streams(byts, state, Ns, 258, max_prob,
+                                           0x100, valid)
+    before = _cuda.launches['fenwick_decode']
+    got, gst = dm.fenwick_decode_streams(byts.to(cuda), state.to(cuda),
+                                         Ns.to(cuda), 258, max_prob, 0x100,
+                                         valid.to(cuda))
+    assert _cuda.launches['fenwick_decode'] == before + 1
+    assert torch.equal(got.cpu(), plain)
+    for a, b in zip(gst, pst):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_fenwick_kernels_flag_bad_input(cuda):
+    from compressjs_tpu_torch.ops import device_model as dm
+    s = torch.tensor([[5]], dtype=torch.int32, device=cuda)
+    v = torch.ones((1, 1), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):   # a symbol outside the model
+        dm.fenwick_encode_streams(s, v, torch.tensor([3], device=cuda), 8,
+                                  0xFF00, 0x100)
+    with pytest.raises(ValueError):   # a lane wider than max_n
+        dm.fenwick_encode_streams(s, v, torch.tensor([9], device=cuda), 8,
+                                  0xFF00, 0x100)
+    with pytest.raises(ValueError):
+        dm.fenwick_decode_streams(s.to(torch.uint8), torch.zeros(
+            (1, 4), dtype=torch.int64, device=cuda),
+            torch.tensor([9], device=cuda), 8, 0xFF00, 0x100, v)
+
+
+def test_bwtcp_and_bwtcl_on_card(cuda):
+    """sample5's first 2,000,000 bytes at -9 through both formats on the
+    card, equal to the host codecs, and the BWTC-L stream back."""
+    data = _sample5()[:2000000]
+    before = dict(_cuda.launches)
+    got = bytes(cz.bwtcp_compress_device(data, level=9, device='cuda'))
+    assert got == bytes(cz.BWTCP.compress_file(data, None, 9))
+    got = bytes(cz.bwtcl_compress_device(data, level=9, device='cuda'))
+    assert got == bytes(cz.BWTCL.compress_file(data, None, 9))
+    assert bytes(cz.bwtcl_decompress_device(got, device='cuda')) == data
+    for k in ('fenwick_encode', 'range_encode', 'fenwick_decode',
+              'mtf_scan', 'mtf_undo'):
+        assert _cuda.launches[k] > before[k], k

@@ -192,6 +192,13 @@ def test_import_isolation():
             'import compressjs_tpu_torch.host.defsum_model;'
             'import compressjs_tpu_torch.host.fenwick_model;'
             'import compressjs_tpu_torch.parallel.sharded_sort;'
+            'import compressjs_tpu_torch.ops.device_coder;'
+            'import compressjs_tpu_torch.ops.device_model;'
+            'import compressjs_tpu_torch.ops.device_lane;'
+            'import compressjs_tpu_torch.host.bwtcp;'
+            'import compressjs_tpu_torch.host.bwtcl;'
+            'compressjs_tpu_torch.bwtcl_compress_device(bytes(range(256)) * 40,'
+            ' device="cpu");'
             'compressjs_tpu_torch.DeviceBWTCEncoder(1, device="cpu")'
             '.compress(bytes(range(256)) * 400);'
             'compressjs_tpu_torch.native.lib();'
