@@ -43,10 +43,12 @@ context-parallel ``sharded_cyclic_suffix_sort`` of a 2^20-byte slice
 against the host rotation sort; and with COMPRESSJS_TPU_BZ2_REF_TIES=1
 the 'core' and 'hybrid' encodes of sample5x4 against the hosts-only
 hetero encode.  Then the BWTC-P and BWTC-L formats: the Fenwick model's
-encode and decode scans and the range coder's (three kernels) against
-their plain versions on sample5's first -9 block as BWTC-L's 128 lanes,
-on the first 4,096 steps of its BWTC-P lane and on random lanes with a
-low max_prob, and alone on the whole BWTC-P lane;
+encode (alone, and fused with the range coder: the paths' kernel) and
+decode scans and the range coder's against their plain versions on
+sample5's first -9 block as BWTC-L's 128 lanes, on the first 4,096
+steps of its BWTC-P lane and on random lanes with a low max_prob, and
+alone on the whole BWTC-P lane and on the 8-lane BWTC-P dispatch of
+sample5x4, where the fused entry equals the unfused two in series;
 ``bwtcp_compress_device`` and ``bwtcl_compress_device`` of sample5x4 at
 -9 against the host codecs, ``bwtcl_decompress_device`` back, and in
 the NCCL group ``mesh_compress_bwtcp``.  It times the encode in each split (wall and the card's
@@ -1404,85 +1406,125 @@ def ref_ties_phase(cz, s5x4):
     return sizes
 
 
+def bwtcp_lane(block, dev):
+    """One 900,000-byte block as ``bwtcp_compress_device`` gives it to the
+    scan kernels, built on the card as the path builds it: (symbols
+    (900,001,) int32, valid (900,001,) bool, N, the coder state (5,)
+    int64 the host leaves after the block's header), with its RLE2
+    count and used alphabet's size."""
+    from compressjs_tpu_torch.host import bwtcp as hbwtcp
+    from compressjs_tpu_torch.host.range_coder import RangeCoder
+    from compressjs_tpu_torch.host.stream import BufferStream
+    from compressjs_tpu_torch.ops import block_kernels as bk
+    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    bs = block.shape[0]
+    used, asize, remap = _block_meta(block)
+    U, pidx = bk.bwt_eof_block(torch.from_numpy(block.copy()).to(dev), bs)
+    dense = torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
+    syms, cnt, _ = bk.rle2_encode(bk.mtf_encode(dense, bs), bs, 0)
+    S = int(cnt) - 1
+    out = BufferStream()
+    enc = RangeCoder(out)
+    enc.encode_start(0, 0)
+    hbwtcp._write_header(enc, 9, bs, int(pidx), used)
+    return (syms.to(torch.int32), torch.arange(bs + 1, device=dev) < S,
+            asize + 2, torch.from_numpy(enc.export_enc_state()).to(dev),
+            S, asize)
+
+
 def scan_inputs(s5, dev):
     """sample5's first 900,000 bytes as the two BWTC paths give them to
     the scan kernels, built on the card as the paths build them: the
     BWTC-L lanes (128, 7,032) and the BWTC-P lane (1, 900,001) with the
     coder state the host leaves after the block's header.  Returns
     {'L': (syms, valid, Ns), 'P': (syms, valid, Ns, init)}."""
-    from compressjs_tpu_torch.host import bwtcp as hbwtcp
-    from compressjs_tpu_torch.host.range_coder import RangeCoder
-    from compressjs_tpu_torch.host.stream import BufferStream
-    from compressjs_tpu_torch.ops import block_kernels as bk
     from compressjs_tpu_torch.ops import device_lane as dl
-    from compressjs_tpu_torch.parallel.pipeline import _block_meta
     bs, lanes = 900000, 128
-    block = np.frombuffer(s5[:bs], np.uint8)
-    used, asize, remap = _block_meta(block)
-    U, pidx = bk.bwt_eof_block(torch.from_numpy(block.copy()).to(dev), bs)
-    dense = torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
-    syms, cnt, _ = bk.rle2_encode(bk.mtf_encode(dense, bs), bs, 0)
-    S = int(cnt) - 1
+    syms, pvalid, N, state, S, asize = bwtcp_lane(
+        np.frombuffer(s5[:bs], np.uint8), dev)
     T = dl.lane_caps(bs, lanes)[0]
     padded = torch.zeros(T * lanes, dtype=torch.int32, device=dev)
-    padded[:bs + 1] = syms.to(torch.int32)
+    padded[:bs + 1] = syms
     lane_l = (padded.view(T, lanes).T.contiguous(),
               dl._lane_valid(T, lanes, S, dev),
-              torch.full((lanes,), asize + 2, dtype=torch.int32, device=dev))
-    out = BufferStream()
-    enc = RangeCoder(out)
-    enc.encode_start(0, 0)
-    hbwtcp._write_header(enc, 9, bs, int(pidx), used)
-    lane_p = (syms.to(torch.int32)[None, :],
-              (torch.arange(bs + 1, device=dev) < S)[None, :],
-              torch.tensor([asize + 2], dtype=torch.int32, device=dev),
-              torch.from_numpy(enc.export_enc_state()[None, :]).to(dev))
+              torch.full((lanes,), N, dtype=torch.int32, device=dev))
+    lane_p = (syms[None, :], pvalid[None, :],
+              torch.tensor([N], dtype=torch.int32, device=dev),
+              state[None, :])
     return {'L': lane_l, 'P': lane_p, 'S': S, 'asize': asize}
 
 
+def dispatch_inputs(s5x4, dev, n=8):
+    """The first `n` full -9 blocks of sample5x4 as one BWTC-P dispatch
+    gives them to the scan kernels: (syms, valid, Ns, init), (n,
+    900,001) lanes."""
+    lanes = [bwtcp_lane(np.frombuffer(s5x4[k * 900000:(k + 1) * 900000],
+                                      np.uint8), dev) for k in range(n)]
+    return (torch.stack([x[0] for x in lanes]),
+            torch.stack([x[1] for x in lanes]),
+            torch.tensor([x[2] for x in lanes], dtype=torch.int32,
+                         device=dev),
+            torch.stack([x[3] for x in lanes]))
+
+
 def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
-                smem_ns, plain=True):
-    """The three scan kernels on one input against their plain versions
-    on the same tensors on the card (where `plain`): the encode's
-    triples, the coder's tokens, counts and byte counts, and the decode
-    of those bytes (from the free byte's state, rows cut at the longest
-    lane: the EOF byte).  Then each kernel alone (its C entry, outputs
-    allocated once) by CUDA events over `reps` launches, each plain
-    version's wall once, and the bounds.  Returns a dict."""
+                smem_ns, plain=True, decode=True):
+    """The scan kernels on one input against their plain versions on the
+    same tensors on the card (where `plain`): the encode's triples, the
+    coder's tokens, counts and byte counts, the fused model and coder
+    (``fenwick_code``) against the plain encode -> coder composition,
+    and (where `decode`) the decode of the coder's bytes (from the free
+    byte's state, rows cut at the longest lane: the EOF byte).  On every
+    input the fused entry equals the two unfused kernels in series.  Then
+    each kernel alone (its C entry, outputs allocated once) and each
+    wrapper by CUDA events over `reps` launches, each plain version's
+    wall once, and the bounds.  Returns a dict."""
     from compressjs_tpu_torch.ops import _cuda
     from compressjs_tpu_torch.ops import device_coder as dc
     from compressjs_tpu_torch.ops import device_model as dm
     L, T = syms.shape
     max_n, incr = 258, 0x100
     res = {'lanes': L, 'steps': T, 'valid_steps': int(valid.sum())}
-    enc = dm.fenwick_encode_streams(syms, valid, Ns, max_n, max_prob, incr)
+    model_args = (syms, valid, Ns, max_n, max_prob, incr)
+    enc = dm.fenwick_encode_streams(*model_args)
     tok = dc.batched_range_encode(*enc, None, None, tok_cap,
                                   init_state=init)
+    fused = dm.fenwick_code_streams(*model_args, init, tok_cap)
+    res['code_vs_series_err'] = max_err(fused, tok)
+    if res['code_vs_series_err']:
+        raise AssertionError('fenwick_code differs from fenwick_encode -> '
+                             'range_encode on %d x %d' % (L, T))
     byts, lens = dc.token_bytes(*tok, 3 * T + 64)
     byts = byts[:, :int(lens.max())].contiguous()
     st = torch.stack(dc.dec_start_state(byts, torch.ones(
         L, dtype=torch.int64, device=dev)), 1)
-    dec = dm.fenwick_decode_streams(byts, st, Ns, max_n, max_prob, incr,
-                                    valid)
+    if decode:
+        dec = dm.fenwick_decode_streams(byts, st, Ns, max_n, max_prob, incr,
+                                        valid)
     if plain:
         enc_p, res['encode_plain_ms'] = timed_card(
-            lambda: dm.fenwick_encode_streams_plain(syms, valid, Ns, max_n,
-                                                    max_prob, incr))
+            lambda: dm.fenwick_encode_streams_plain(*model_args))
+        # the plain coder on the kernel's triples, which equal the plain
+        # encode's: the plain composition, the fused entry's plain version
         tok_p, res['coder_plain_ms'] = timed_card(
             lambda: dc.batched_range_encode_plain(*enc, init, tok_cap))
+        res['code_plain_ms'] = res['encode_plain_ms'] + res['coder_plain_ms']
         dec_p, res['decode_plain_ms'] = timed_card(
             lambda: dm.fenwick_decode_streams_plain(byts, st, Ns, max_n,
                                                     max_prob, incr, valid))
         res['encode_err'] = max_err(enc, enc_p)
         res['coder_err'] = max_err(tok, tok_p)
+        res['code_err'] = max_err(fused, tok_p)
         res['decode_err'] = max_err((dec[0],) + dec[1],
                                     (dec_p[0],) + dec_p[1])
-        if max(res['encode_err'], res['coder_err'], res['decode_err']):
+        if max(res['encode_err'], res['coder_err'], res['code_err'],
+               res['decode_err']):
             raise AssertionError('scan kernels differ from their plain '
                                  'versions on %d x %d: %s' % (L, T, res))
     # the stream decodes to its symbols where its coder started fresh
     # (init is then encode_start's)
-    if bool((init[:, 1] == 1 << 31).all() and (init[:, 0] == 0).all()):
+    if decode and bool((init[:, 1] == 1 << 31).all() and
+                       (init[:, 0] == 0).all()):
         res['round_trip'] = bool(torch.equal(dec[0][valid], syms[valid]))
         if not res['round_trip']:
             raise AssertionError('scan kernels: %d x %d lanes do not decode '
@@ -1502,6 +1544,7 @@ def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
     st0 = torch.stack(dm._dec_states(st), 1).contiguous()
     st1 = st0.clone()
     out = torch.empty((L, T), dtype=torch.int32, device=dev)
+    init = init.contiguous()
 
     def k_enc():
         _cuda.check(lib.cz_fenwick_encode(
@@ -1509,12 +1552,19 @@ def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
             max_prob, incr, sy.data_ptr(), lt.data_ptr(), tot.data_ptr(),
             vo.data_ptr(), err.data_ptr(), stream), 'fenwick_encode')
 
-    def k_code():
+    def k_coder():
         _cuda.check(lib.cz_range_encode(
             enc[0].data_ptr(), enc[1].data_ptr(), enc[2].data_ptr(),
             ev8.data_ptr(), init.data_ptr(), L, 2 * T, tokens.data_ptr(),
             tok_cap, tok_n.data_ptr(), nbytes.data_ptr(), stream),
             'range_encode')
+
+    def k_code():
+        _cuda.check(lib.cz_fenwick_code(
+            s32.data_ptr(), v8.data_ptr(), n32.data_ptr(), L, T, max_n,
+            max_prob, incr, init.data_ptr(), tokens.data_ptr(), tok_cap,
+            tok_n.data_ptr(), nbytes.data_ptr(), err.data_ptr(), stream),
+            'fenwick_code')
 
     def k_dec():
         st1.copy_(st0)
@@ -1524,16 +1574,38 @@ def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
             err.data_ptr(), stream), 'fenwick_decode')
 
     res['encode_ms'] = cuda_ms(k_enc, reps)
-    res['coder_ms'] = cuda_ms(k_code, reps)
-    res['decode_ms'] = cuda_ms(k_dec, reps)
+    res['coder_ms'] = cuda_ms(k_coder, reps)
+    res['code_ms'] = cuda_ms(k_code, reps)
+    if decode:
+        res['decode_ms'] = cuda_ms(k_dec, reps)
     if int(err):
         raise AssertionError('a scan kernel flagged its input')
-    # bounds: bytes in and out once at the HBM rate; integer operations
-    # (per valid symbol a walk of `levels` read-add-write steps of ~4
-    # operations; per valid triple ~12 coder operations) at the INT32
-    # rate; and the chain of the longest lane, one dependent
-    # shared-memory step (smem_ns, cz_smem_chain_probe) per tree level
-    # per symbol, and one per triple for the coder
+    # the wrappers (their allocations and, but for the coder's, the read
+    # of the error flag)
+    res['encode_wrapper_ms'] = cuda_ms(
+        lambda: dm.fenwick_encode_streams(*model_args), reps)
+    res['coder_wrapper_ms'] = cuda_ms(
+        lambda: dc.batched_range_encode(*enc, None, None, tok_cap,
+                                        init_state=init), reps)
+    res['code_wrapper_ms'] = cuda_ms(
+        lambda: dm.fenwick_code_streams(*model_args, init, tok_cap), reps)
+    if decode:
+        res['decode_wrapper_ms'] = cuda_ms(
+            lambda: dm.fenwick_decode_streams(byts, st, Ns, max_n, max_prob,
+                                              incr, valid), reps)
+    # bounds: the bytes the outputs need, in and out once at the HBM
+    # rate; integer operations (per valid symbol a walk of `levels`
+    # read-add-write steps of ~4 operations; per valid triple ~12 coder
+    # operations) at the INT32 rate; and two latency floors of the
+    # longest lane: the per-level chain of one thread walking the tree
+    # (one dependent shared-memory step, smem_ns from
+    # cz_smem_chain_probe, per tree level per symbol), and the coder's
+    # chain (one such step per valid triple), which nothing in the fused
+    # work splits.  The model alone writes every slot, masked ones too,
+    # so it reads every symbol; the coder's tokens and the fused entry's
+    # depend only on the valid bytes and the valid steps' symbols or
+    # triples (4 or 12 bytes each), and each lane's state, counts and
+    # size (the coder 40 + 4 + 8 bytes, the fused entry 4 more)
     levels = int(Ns.max()).bit_length()
     n_valid, n_trip = int(valid.sum()), int(enc[3].sum())
     lane_valid = int(valid.sum(1).max())
@@ -1542,11 +1614,16 @@ def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
     res['encode_bound_ms'], res['encode_bound_by'] = bound(
         L * T * 5 + L * 2 * T * 13, n_valid * levels * 4)
     res['coder_bound_ms'], res['coder_bound_by'] = bound(
-        L * 2 * T * 13 + n_tok * 12, n_trip * 12)
+        L * 2 * T + n_trip * 12 + L * 52 + n_tok * 12, n_trip * 12)
+    res['code_bound_ms'], res['code_bound_by'] = bound(
+        L * T + n_valid * 4 + L * 56 + n_tok * 12,
+        n_valid * levels * 4 + n_trip * 12)
     res['decode_bound_ms'], res['decode_bound_by'] = bound(
         int(lens.sum()) + L * T * 5, n_valid * levels * 5)
     res['encode_chain_floor_ms'] = lane_valid * levels * smem_ns * 1e-6
     res['coder_chain_floor_ms'] = lane_trip * smem_ns * 1e-6
+    res['code_chain_floor_ms'] = res['coder_chain_floor_ms']
+    res['code_level_chain_floor_ms'] = res['encode_chain_floor_ms']
     res['decode_chain_floor_ms'] = lane_valid * levels * smem_ns * 1e-6
     res['tokens'] = n_tok
     res['bytes'] = int(lens.sum())
@@ -1568,14 +1645,18 @@ def timed_card(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def scan_phase(s5, dev, smem_ns):
-    """Phase "Fenwick/coder kernels vs plain versions": the three scan
-    kernels against their plain versions on sample5's first -9 block as
-    BWTC-L's 128 lanes (every step), on the first 4,096 steps of that
-    block's BWTC-P lane (the plain versions cannot walk its 900,001 steps
-    inside the smoke's time limit), and on 128 random lanes with max_prob
-    0x400 (escapes and rescales); then the kernels on the whole BWTC-P
-    lane, the main path's shape, where they decode what they coded."""
+def scan_phase(s5, s5x4, dev, smem_ns):
+    """Phase "Fenwick/coder kernels vs plain versions": the scan kernels
+    (the model, the coder, the two fused, the decode) against their plain
+    versions on sample5's first -9 block as BWTC-L's 128 lanes (every
+    step), on the first 4,096 steps of that block's BWTC-P lane (the
+    plain versions cannot walk its 900,001 steps inside the smoke's time
+    limit), and on 128 random lanes with max_prob 0x400 (escapes and
+    rescales); then the kernels on the whole BWTC-P lane, where they
+    decode what they coded, and on the 8-lane BWTC-P dispatch of
+    sample5x4's first 8 blocks with the host's header states, the main
+    path's shapes, where the fused entry equals the unfused two in
+    series."""
     from compressjs_tpu_torch.ops import device_coder as dc
     from compressjs_tpu_torch.ops import device_lane as dl
     inp = scan_inputs(s5, dev)
@@ -1601,36 +1682,50 @@ def scan_phase(s5, dev, smem_ns):
         torch.from_numpy(rvalid).to(dev),
         torch.from_numpy((sizes + 1).astype(np.int32)).to(dev), 0x400,
         dc.encoder_states(zeros, zeros), 2 * T + 8, dev, 20, smem_ns)
-    # the whole lane (the main path's shape) from a fresh coder, so that
-    # its decode is of a real stream: the kernels against each other
-    # (encode -> code -> decode gives the symbols back); its block
-    # stream is held to the host codec's in "BWTC-P on the card"
+    # the whole lane from a fresh coder, so that its decode is of a real
+    # stream: the kernels against each other (encode -> code -> decode
+    # gives the symbols back); its block stream is held to the host
+    # codec's in "BWTC-P on the card"
+    tok_cap = 900000 + (900000 >> 2) + 64
     zeros = torch.zeros(1, dtype=torch.int64, device=dev)
     out['bwtcp_lane_full'] = check_scans(
         psyms.contiguous(), pvalid.contiguous(), pNs, 0xFF00,
-        dc.encoder_states(zeros, zeros), 900000 + (900000 >> 2) + 64, dev,
-        3, smem_ns, plain=False)
+        dc.encoder_states(zeros, zeros), tok_cap, dev, 3, smem_ns,
+        plain=False)
+    dsyms, dvalid, dNs, dinit = dispatch_inputs(s5x4, dev)
+    out['bwtcp_dispatch_8'] = check_scans(
+        dsyms, dvalid, dNs, 0xFF00, dinit, tok_cap, dev, 3, smem_ns,
+        plain=False, decode=False)
     for name, r in out.items():
         if not isinstance(r, dict):
             continue
-        print('  %s (%d x %d, %d valid steps): encode %.4f ms (plain %s), '
-              'coder %.4f ms (plain %s), decode %.4f ms (plain %s); bounds '
-              '%.5f / %.5f / %.5f ms, chain floors %.4f / %.4f / %.4f ms'
+        print('  %s (%d x %d, %d valid steps): encode %.4f ms (wrapper '
+              '%.4f, plain %s), coder %.4f ms (wrapper %.4f, plain %s), '
+              'fused %.4f ms (wrapper %.4f, plain %s), decode %s '
+              '(wrapper %s, plain %s); bounds %.5f / %.5f / %.5f ms / %s; '
+              'per-level chain floor %.4f ms, coder chain floor %.4f ms'
               % (name, r['lanes'], r['steps'], r['valid_steps'],
-                 r['encode_ms'], _ms(r.get('encode_plain_ms')),
-                 r['coder_ms'], _ms(r.get('coder_plain_ms')),
-                 r['decode_ms'], _ms(r.get('decode_plain_ms')),
-                 r['encode_bound_ms'], r['coder_bound_ms'],
-                 r['decode_bound_ms'], r['encode_chain_floor_ms'],
-                 r['coder_chain_floor_ms'], r['decode_chain_floor_ms']))
+                 r['encode_ms'], r['encode_wrapper_ms'],
+                 _ms(r.get('encode_plain_ms')), r['coder_ms'],
+                 r['coder_wrapper_ms'], _ms(r.get('coder_plain_ms')),
+                 r['code_ms'], r['code_wrapper_ms'],
+                 _ms(r.get('code_plain_ms')), _ms(r.get('decode_ms'), 4),
+                 _ms(r.get('decode_wrapper_ms'), 4),
+                 _ms(r.get('decode_plain_ms')), r['encode_bound_ms'],
+                 r['coder_bound_ms'], r['code_bound_ms'],
+                 _ms(r['decode_bound_ms'] if 'decode_ms' in r else None,
+                     5), r['encode_chain_floor_ms'],
+                 r['coder_chain_floor_ms']))
     print('  the plain versions walk every step of the BWTC-L lanes and of '
           'the random lanes, and the first 4,096 of the BWTC-P lane\'s '
-          '900,001 (all of them would outlast the smoke\'s time limit)')
+          '900,001 (all of them would outlast the smoke\'s time limit); '
+          'on every input the fused entry equals fenwick_encode -> '
+          'range_encode')
     return out
 
 
-def _ms(x):
-    return 'not run' if x is None else '%.1f ms' % x
+def _ms(x, digits=1):
+    return 'not run' if x is None else '%.*f ms' % (digits, x)
 
 
 def bwtcp_phase(cz, s5x4):
@@ -1652,8 +1747,8 @@ def bwtcp_phase(cz, s5x4):
         raise AssertionError('BWTC-P stream does not decode')
     n_full = len(s5x4) // 900000
     if stats['device_blocks'] + stats['overflow_blocks'] != n_full or \
-            launches['fenwick_encode'] < 1 or launches['range_encode'] < 1 \
-            or launches['mtf_scan'] != 3 * n_full:
+            launches['fenwick_code'] < 1 or launches['fenwick_encode'] or \
+            launches['range_encode'] or launches['mtf_scan'] != 3 * n_full:
         raise AssertionError('BWTC-P path: launches %s, stats %s'
                              % (launches, stats))
     _, dev_s2 = timed(lambda: cz.bwtcp_compress_device(s5x4, level=9))
@@ -1710,8 +1805,8 @@ def bwtcl_phase(cz, s5x4):
     if bytes(host_back) != s5x4:
         raise AssertionError('host BWTC-L decode differs')
     n_full = len(s5x4) // 900000
-    if enc_launches['fenwick_encode'] != enc_stats['device_blocks'] or \
-            enc_launches['range_encode'] != enc_stats['device_blocks'] or \
+    if enc_launches['fenwick_code'] != enc_stats['device_blocks'] or \
+            enc_launches['fenwick_encode'] or enc_launches['range_encode'] or \
             enc_launches['mtf_scan'] != 3 * n_full or \
             dec_launches['fenwick_decode'] != dec_stats['device_blocks'] or \
             dec_launches['mtf_undo'] != 3 * dec_stats['device_blocks'] or \
@@ -1999,7 +2094,7 @@ def main():
     phase('Fenwick/coder kernels vs plain versions')
     # one dependent shared-memory load, from the chase phase's probe
     smem_ns = chase['smem_floor_ms'] * 1e6 / chase['steps']
-    scans = scan_phase(s5, dev, smem_ns)
+    scans = scan_phase(s5, s5x4, dev, smem_ns)
 
     phase('main path: sample5x4 -9 encode')
     for name in _cuda.launches:
@@ -2375,35 +2470,62 @@ def main():
     ]
     # the scan kernels: times, plain times and bounds at BWTC-L's 128
     # lanes of sample5's first -9 block (every step through the plain
-    # versions too), and the kernels alone on its whole BWTC-P lane
+    # versions too), and the kernels alone on its whole BWTC-P lane and on
+    # the 8-lane dispatch of sample5x4 (the encode's kernels; the decode
+    # on the lane); the two unfused encode kernels are on no path since
+    # the fused entry took their place
     checked = [scans[k] for k in ('bwtcl_lanes', 'bwtcp_lane_4096',
                                   'random_0x400')]
     lanes_l, lane_p = scans['bwtcl_lanes'], scans['bwtcp_lane_full']
-    for name, key, replaces in (
-            ('fenwick_encode', 'encode',
+    disp = scans['bwtcp_dispatch_8']
+    encode_src = 'compressjs_tpu_torch/csrc/fenwick_encode.cu'
+    for name, key, source, replaces in (
+            ('fenwick_code', 'code', encode_src,
+             'compressjs_tpu/ops/device_model.py:211 with '
+             'device_coder.py:63 (lax.scans :276 and :108, no TPU kernel)'),
+            ('fenwick_encode', 'encode', encode_src,
              'compressjs_tpu/ops/device_model.py:211 (lax.scan :276, no '
              'TPU kernel)'),
-            ('range_encode', 'coder',
+            ('range_encode', 'coder', encode_src,
              'compressjs_tpu/ops/device_coder.py:63 (lax.scan :108, no TPU '
              'kernel)'),
             ('fenwick_decode', 'decode',
+             'compressjs_tpu_torch/csrc/fenwick_decode.cu',
              'compressjs_tpu/ops/device_model.py:118 (lax.scan :206, with '
              'device_coder.py:142-195; no TPU kernel)')):
-        kernels.append({
-            'name': name, 'route': 'cuda',
-            'source': 'compressjs_tpu_torch/csrc/%s.cu' % name,
+        entry = {
+            'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': total(name),
             'launches_by_path': by_path(name),
             'max_abs_err': max(r[key + '_err'] for r in checked),
             'ms': lanes_l[key + '_ms'], 'plain_ms': lanes_l[key + '_plain_ms'],
             'bound_ms': lanes_l[key + '_bound_ms'],
             'bound_by': lanes_l[key + '_bound_by'], 'library_ms': None,
+            'wrapper_ms': lanes_l[key + '_wrapper_ms'],
             'chain_floor_ms': lanes_l[key + '_chain_floor_ms'],
             'bwtcp_lane_ms': lane_p[key + '_ms'],
+            'bwtcp_lane_wrapper_ms': lane_p[key + '_wrapper_ms'],
             'bwtcp_lane_bound_ms': lane_p[key + '_bound_ms'],
             'bwtcp_lane_chain_floor_ms': lane_p[key + '_chain_floor_ms'],
             'bwtcp_lane_4096_ms': scans['bwtcp_lane_4096'][key + '_ms'],
-            'random_0x400_ms': scans['random_0x400'][key + '_ms']})
+            'random_0x400_ms': scans['random_0x400'][key + '_ms']}
+        if key != 'decode':
+            entry.update(
+                bwtcp_dispatch_8_ms=disp[key + '_ms'],
+                bwtcp_dispatch_8_wrapper_ms=disp[key + '_wrapper_ms'],
+                bwtcp_dispatch_8_bound_ms=disp[key + '_bound_ms'],
+                bwtcp_dispatch_8_chain_floor_ms=disp[key + '_chain_floor_ms'])
+        if key == 'code':
+            entry.update(
+                max_abs_err_vs_series=max(
+                    r['code_vs_series_err'] for r in scans.values()
+                    if isinstance(r, dict)),
+                level_chain_floor_ms=lanes_l['code_level_chain_floor_ms'],
+                bwtcp_lane_level_chain_floor_ms=lane_p[
+                    'code_level_chain_floor_ms'])
+        if key in ('encode', 'coder'):
+            entry['main_path'] = False
+        kernels.append(entry)
     print('encode modes: ' + json.dumps(mode_times))
     print('new paths: ' + json.dumps({
         'wall_s': new_times, 'hetero_last_stats': het_timed_stats,

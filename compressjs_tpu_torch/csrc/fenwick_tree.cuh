@@ -8,10 +8,15 @@
 // the escape counts in its low 16 bits and the symbol counts in its high
 // 16.  Nodes in [2N, 2 * max_n) stay 0, as in the JAX array.
 //
-// The lanes of a block interleave their trees: node i of the block's
-// lane k is word i * blockDim.x + k, so the lanes' reads of one node (the
-// root, above all) fall in distinct banks.
-
+// Two layouts:
+//
+// * one thread a lane (fenwick_decode.cu): the lanes of a block interleave
+//   their trees, node i of the block's lane k at word i * blockDim.x + k,
+//   so that the lanes' reads of one node (the root, above all) fall in
+//   distinct banks (Tree, init_tree, rescale);
+// * one warp a lane (fenwick_encode.cu): node i at word i, and the warp's
+//   32 threads share each tree operation (the *_warp functions, which
+//   every thread of the warp calls with its lane index).
 #pragma once
 
 #include <cstdint>
@@ -83,6 +88,96 @@ __device__ __forceinline__ void rescale(const Tree& t, int N) {
   }
   t[2 * N - 1] = p;
   sum_tree(t, N);
+}
+
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
+// Internal sums, level by level from the deepest (the plain _sum_tree),
+// so that every parent reads final children; the warp takes a level's
+// nodes 32 at a time.
+__device__ __forceinline__ void sum_tree_warp(uint32_t* t, int N, int lane) {
+  for (int lev = 31 - __clz(N - 1); lev >= 0; --lev) {
+    const int hi = (2 << lev) < N ? (2 << lev) : N;
+    for (int i = (1 << lev) + lane; i < hi; i += 32) {
+      t[i] = t[2 * i] + t[2 * i + 1];
+    }
+    __syncwarp();
+  }
+}
+
+// init_tree by a warp; returns the root.
+__device__ __forceinline__ uint32_t init_tree_warp(uint32_t* t, int N,
+                                                   int width,
+                                                   uint32_t increment,
+                                                   int lane) {
+  for (int i = lane; i < width; i += 32) {
+    t[i] = i >= N && i < 2 * N - 1 ? 1u
+         : (i == 2 * N - 1 ? increment << kSymShift : 0u);
+  }
+  __syncwarp();
+  sum_tree_warp(t, N, lane);
+  return t[1];
+}
+
+// rescale by a warp: each thread halves every 32nd symbol leaf, the
+// warp's vote decides whether any leaf still carries an escape count,
+// then the escape leaf and the sums.  Returns the new root.  The first
+// __syncwarp orders every thread's earlier reads of the tree before the
+// writes.
+__device__ __forceinline__ uint32_t rescale_warp(uint32_t* t, int N,
+                                                 int lane) {
+  __syncwarp();
+  bool escape = false;
+  for (int i = N + lane; i < 2 * N - 1; i += 32) {
+    uint32_t p = t[i];
+    if (p & kEscMask) {
+      escape = true;
+      continue;
+    }
+    p = (p & kScaleMask) >> 1;
+    if (p == 0) {
+      p = 1;
+      escape = true;
+    }
+    t[i] = p;
+  }
+  const bool no_escape = !__any_sync(kFullWarp, escape);
+  if (lane == 0) {
+    const uint32_t p = (t[2 * N - 1] & kScaleMask) >> 1;
+    t[2 * N - 1] = no_escape ? 0u : (p == 0 ? 1u << kSymShift : p);
+  }
+  __syncwarp();
+  sum_tree_warp(t, N, lane);
+  return t[1];
+}
+
+// Words between two levels' sibling columns (walk_warp's `col`): 33, so
+// that a walk's stores and a step's reads fall in distinct banks.
+constexpr int kSibStride = 33;
+
+// One leaf -> root walk by a warp: thread k takes the path's node
+// leaf >> k (the depth is at most 13 < 32), reads its left sibling where
+// the node is a right child and adds `update` to the node, the root
+// included.  The siblings are never on the path, so the levels are
+// independent: one round of shared memory.  Thread k stores its sibling
+// (0 off the path or for a left child) at col[k * kSibStride]: their sum
+// mod 2^32 (any order gives the serial walk's bits) is lt_f before its
+// plane's mask, which the caller adds up when it needs it, off the
+// model's chain.  The threads off the path read and write the word
+// `spare` (past the tree, never read for a value), so that every thread
+// runs the same instructions.  The first __syncwarp orders every
+// thread's earlier reads of the tree before the walk's writes.
+__device__ __forceinline__ void walk_warp(uint32_t* t, int leaf,
+                                          uint32_t update, int spare,
+                                          int lane, uint32_t* col) {
+  __syncwarp();
+  const int n = leaf >> lane;
+  const int at = n >= 1 ? n : spare;
+  const bool left = n > 1 && (n & 1);
+  const uint32_t sib = t[left ? n - 1 : spare];
+  t[at] += update;
+  col[lane * kSibStride] = left ? sib : 0u;
+  __syncwarp();
 }
 
 // Lanes a block for trees of 2 * max_n words: kLanesPerBlock, fewer where

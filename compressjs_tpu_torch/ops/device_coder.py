@@ -10,8 +10,12 @@ round-robin sub-streams of one BWTC-L block (``ops.device_lane``).
 * `batched_range_encode` emits (byte, run, fill) tokens: each byte the
   coder shifts out with its settled carry is one token, the pending-carry
   run of 0xFF or 0x00 bytes behind it its run.  For a CUDA tensor it is
-  one launch of ``csrc/range_encode.cu``; for a CPU tensor its plain
-  version `batched_range_encode_plain` runs, one vector step per triple.
+  one launch of ``csrc/fenwick_encode.cu``'s coder entry
+  (``cz_range_encode``); for a CPU tensor its plain version
+  `batched_range_encode_plain` runs, one vector step per triple.  The
+  BWTC-P and BWTC-L encodes code through
+  ``ops.device_model.fenwick_code_streams``, model and coder in one
+  launch.
 * `token_bytes` expands the tokens into each lane's bytes: a count sum,
   a searchsorted of every byte's token and a gather.
 * `dec_start_state`, `_dec_normalize`, `dec_cul_freq` and `dec_update`
@@ -144,7 +148,7 @@ def batched_range_encode(sy_f, lt_f, tot_f, step_valid, first_byte,
     Returns (tokens (L, cap, 3) int32 of u32 bits, tok_n (L,) int32,
     bytecounts (L,) int64), cap = tok_cap or 3T + 8; tokens past cap are
     dropped and counted.  For a CUDA tensor one launch of
-    ``csrc/range_encode.cu``; for a CPU tensor
+    ``csrc/fenwick_encode.cu``'s ``cz_range_encode``; for a CPU tensor
     `batched_range_encode_plain`."""
     L, T = sy_f.shape
     cap = tok_cap if tok_cap is not None else 3 * T + 8

@@ -6,14 +6,14 @@ block, so every scan step advances 128 independent model and coder
 chains.  Per block:
 
 encode: EOF BWT -> MTF -> RLE2 -> round-robin lane split ->
-        fenwick_encode_streams -> batched_range_encode -> token_bytes ->
+        fenwick_code_streams (model and coder) -> token_bytes ->
         ragged_concat (one download)
 decode: lane bytes -> fenwick_decode_streams -> interleave -> RLE2 undo ->
         MTF undo -> inverse EOF BWT
 
 Byte for byte the host codec's (``host.bwtcl``).  On the card the MTF
 stages, the model and the coder are kernels (``csrc/mtf_scan.cu``,
-``mtf_undo.cu``, ``fenwick_encode.cu``, ``range_encode.cu``,
+``mtf_undo.cu``, ``fenwick_encode.cu``'s fused entry,
 ``fenwick_decode.cu``); on the CPU their plain versions run.
 """
 
@@ -80,13 +80,10 @@ def encode_block_lanes(block, bs, lanes, remap, asize):
     padded[:bs + 1] = syms.to(torch.int32)
     lanemat = padded.view(T, lanes).T.contiguous()     # lane l, slot t
     Ns = torch.full((lanes,), asize + 2, dtype=torch.int32, device=dev)
-    sy, lt, tot, v = dm.fenwick_encode_streams(
-        lanemat, _lane_valid(T, lanes, S, dev), Ns, MAX_N, F_PROB_MAX,
-        F_PROB_INCR)
     zeros = torch.zeros(lanes, dtype=torch.int64, device=dev)
-    tokens, tok_n, nbytes = dc.batched_range_encode(sy, lt, tot, v, zeros,
-                                                    zeros, tok_cap)
-    del sy, lt, tot, v
+    tokens, tok_n, nbytes = dm.fenwick_code_streams(
+        lanemat, _lane_valid(T, lanes, S, dev), Ns, MAX_N, F_PROB_MAX,
+        F_PROB_INCR, dc.encoder_states(zeros, zeros), tok_cap)
     byts, lens = dc.token_bytes(tokens, tok_n, nbytes, lane_cap)
     flat, total = ragged_concat(byts, lens, bs + (bs >> 1) + 4096)
     return pidx, S, lens, flat, total, tok_n.max()

@@ -10,15 +10,19 @@ the halving rescale with re-escape.
 
 * `fenwick_encode_streams` turns (L, T) symbols into the (L, 2T)
   triples that ``ops.device_coder.batched_range_encode`` codes.
+* `fenwick_code_streams` is those two in one: symbols to the coder's
+  tokens, the triples never leaving the kernel (the BWTC-P and BWTC-L
+  encodes call it).
 * `fenwick_decode_streams` decodes (L, T) symbols from the lanes' bytes,
   with the range decoder fused in (the root -> leaf walk depends on
   every decoded frequency).
 
 For a CUDA tensor each is one launch of its kernel
-(``csrc/fenwick_encode.cu``, ``csrc/fenwick_decode.cu``: one thread per
-lane, its tree in shared memory); for a CPU tensor its plain version
-runs, one vector step per symbol over all lanes, in int64 masked to 32
-bits where the JAX package's uint32 wraps.  Symbols are non-negative.
+(``csrc/fenwick_encode.cu``: a warp a lane, its tree in shared memory;
+``csrc/fenwick_decode.cu``: a thread a lane); for a CPU tensor its plain
+version runs, one vector step per symbol over all lanes, in int64
+masked to 32 bits where the JAX package's uint32 wraps.  Symbols are
+non-negative.
 """
 
 from __future__ import annotations
@@ -238,12 +242,73 @@ def fenwick_encode_streams(symbols, step_valid, Ns, max_n, max_prob,
         max_prob, increment, sy.data_ptr(), lt.data_ptr(), tot.data_ptr(),
         vout.data_ptr(), err.data_ptr(), _cuda.stream_handle(dev)),
         'fenwick_encode')
-    flag = int(err)
-    if flag:
-        raise ValueError('fenwick_encode_streams: %s'
-                         % ('a lane size outside [2, max_n]' if flag & 1
-                            else 'a symbol outside its lane\'s model'))
+    _raise_flag(int(err), 'fenwick_encode_streams')
     return sy, lt, tot, vout
+
+
+def fenwick_code_streams_plain(symbols, step_valid, Ns, max_n, max_prob,
+                               increment, init_state, tok_cap=None):
+    """Plain version of `fenwick_code_streams`: the two plain versions in
+    series."""
+    T = symbols.shape[1]
+    cap = tok_cap if tok_cap is not None else 6 * T + 8
+    return dc.batched_range_encode_plain(
+        *fenwick_encode_streams_plain(symbols, step_valid, Ns, max_n,
+                                      max_prob, increment),
+        init_state.to(torch.int64), cap)
+
+
+def fenwick_code_streams(symbols, step_valid, Ns, max_n, max_prob,
+                         increment, init_state, tok_cap=None):
+    """Code (L, T) symbol streams through per-lane Fenwick models (as
+    `fenwick_encode_streams`) straight into per-lane range coders that
+    continue from init_state, (L, 5) int64 exported encoder states
+    (``RangeCoder.export_enc_state``, or ``device_coder.encoder_states``).
+
+    Returns (tokens (L, cap, 3) int32, tok_n (L,) int32, bytecounts (L,)
+    int64), cap = tok_cap or 6T + 8: exactly
+    ``batched_range_encode(*fenwick_encode_streams(...), None, None,
+    tok_cap, init_state=init_state)``.  For a CUDA tensor one launch of
+    ``csrc/fenwick_encode.cu``'s fused entry (raises if a lane's N or an
+    unmasked symbol is out of range); for a CPU tensor
+    `fenwick_code_streams_plain`."""
+    _check_max_n(max_n)
+    if symbols.device.type == 'cpu':
+        return fenwick_code_streams_plain(symbols, step_valid, Ns, max_n,
+                                          max_prob, increment, init_state,
+                                          tok_cap)
+    _cuda.require_cuda(symbols, 'fenwick_code_streams')
+    dev = symbols.device
+    L, T = symbols.shape
+    cap = tok_cap if tok_cap is not None else 6 * T + 8
+    syms = symbols.to(torch.int32).contiguous()
+    valid = step_valid.to(device=dev, dtype=torch.uint8).contiguous()
+    Ns = Ns.to(device=dev, dtype=torch.int32).contiguous()
+    init = init_state.to(device=dev, dtype=torch.int64).contiguous()
+    if valid.shape != (L, T) or Ns.shape != (L,) or init.shape != (L, 5):
+        raise ValueError('fenwick_code_streams: step_valid (L, T), Ns (L,) '
+                         'and states (L, 5), not %s, %s and %s'
+                         % (tuple(valid.shape), tuple(Ns.shape),
+                            tuple(init.shape)))
+    tokens = torch.zeros((L, cap, 3), dtype=torch.int32, device=dev)
+    tok_n = torch.empty(L, dtype=torch.int32, device=dev)
+    nbytes = torch.empty(L, dtype=torch.int64, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    _cuda.launches['fenwick_code'] += 1
+    _cuda.check(_cuda.lib().cz_fenwick_code(
+        syms.data_ptr(), valid.data_ptr(), Ns.data_ptr(), L, T, max_n,
+        max_prob, increment, init.data_ptr(), tokens.data_ptr(), cap,
+        tok_n.data_ptr(), nbytes.data_ptr(), err.data_ptr(),
+        _cuda.stream_handle(dev)), 'fenwick_code')
+    _raise_flag(int(err), 'fenwick_code_streams')
+    return tokens, tok_n, nbytes
+
+
+def _raise_flag(flag, what):
+    if flag:
+        raise ValueError('%s: %s' % (what, 'a lane size outside [2, max_n]'
+                                     if flag & 1 else
+                                     'a symbol outside its lane\'s model'))
 
 
 def _sub_decode(tr, state, payload, plane_esc, active, upd_sym, max_prob,

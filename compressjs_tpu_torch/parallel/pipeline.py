@@ -453,8 +453,8 @@ def _bwtcp_group(blocks, level, dev):
     """The full blocks of one dispatch as BWTC-P block streams, or None
     for a block whose tokens or bytes pass their caps.  Per block the
     card runs the EOF BWT, MTF and RLE2; the host codes the header on the
-    block's fresh coder and hands its state over; then one launch of each
-    scan kernel codes every block's body as a lane."""
+    block's fresh coder and hands its state over; then one launch of the
+    fused model and coder codes every block's body as a lane."""
     bs = blocks[0].shape[0]
     heads, states, Ns, rows, counts = [], [], [], [], []
     for b in blocks:
@@ -477,15 +477,12 @@ def _bwtcp_group(blocks, level, dev):
     valid = torch.arange(T, device=dev)[None, :] < \
         (torch.stack(counts) - 1)[:, None]     # without the EOB slot
     del rows
-    sy, lt, tot, v = dm.fenwick_encode_streams(
-        syms, valid, torch.tensor(Ns, dtype=torch.int32, device=dev),
-        dl.MAX_N, host_bwtcp.F_PROB_MAX, host_bwtcp.F_PROB_INCR)
-    del syms, valid
     tok_cap = _bwtcp_tok_cap(bs)
-    tokens, tok_n, nbytes = dc.batched_range_encode(
-        sy, lt, tot, v, None, None, tok_cap,
-        init_state=coder_states(np.stack(states), dev))
-    del sy, lt, tot, v
+    tokens, tok_n, nbytes = dm.fenwick_code_streams(
+        syms, valid, torch.tensor(Ns, dtype=torch.int32, device=dev),
+        dl.MAX_N, host_bwtcp.F_PROB_MAX, host_bwtcp.F_PROB_INCR,
+        coder_states(np.stack(states), dev), tok_cap)
+    del syms, valid
     out_cap = bs + (bs >> 1) + 4096
     byts, lens = dc.token_bytes(tokens, tok_n, nbytes, out_cap)
     del tokens

@@ -631,6 +631,76 @@ def test_fenwick_decode_kernel_matches_plain(cuda, max_prob):
         assert torch.equal(a.cpu(), b)
 
 
+def _scan_lanes(seed, L, T):
+    """(symbols, valid, Ns) of L ragged zipf lanes on the CPU, model sizes
+    1 to 256 in turn: lane 0 has no valid step, lane 1 only its first,
+    lane 2 holes every fifth step, the others end anywhere."""
+    rng = np.random.default_rng(seed)
+    sizes = [1 + (37 * l) % 256 for l in range(L)]
+    syms = np.zeros((L, T), np.int32)
+    valid = np.zeros((L, T), bool)
+    for l, sz in enumerate(sizes):
+        tl = [0, 1][l] if l < 2 else int(rng.integers(0, T + 1))
+        syms[l, :tl] = np.minimum(rng.zipf(1.2, tl) - 1, sz - 1)
+        syms[l, tl:] = rng.integers(0, sz, T - tl)
+        valid[l, :tl] = True
+    if L > 2:
+        valid[2, ::5] = False
+    return (torch.from_numpy(syms), torch.from_numpy(valid),
+            torch.tensor([s + 1 for s in sizes], dtype=torch.int32))
+
+
+@pytest.mark.parametrize('max_prob', [0xFF00, 0x400])
+@pytest.mark.parametrize('L', [1, 8, 20, 128])
+def test_encode_entries_match_plain(cuda, L, max_prob):
+    """The three entries of csrc/fenwick_encode.cu (the model alone, the
+    coder alone, the two fused) against their plain versions at L = 1,
+    8, 20 and 128 lanes (a block a lane: 20 and 128 are no multiple of
+    the old 16 lanes a block), with a lane of no valid step, a lane
+    whose last valid slot is its first, holes, coders continuing
+    exported states and a token cap that overflows."""
+    from compressjs_tpu_torch.ops import device_coder as dc
+    from compressjs_tpu_torch.ops import device_model as dm
+    T = 700 if L <= 20 else 150
+    syms, valid, Ns = _scan_lanes(L + max_prob, L, T)
+    rng = np.random.default_rng(L)
+    init = dc.encoder_states(torch.from_numpy(rng.integers(0, 256, L)),
+                             torch.from_numpy(rng.integers(0, 4, L)))
+    args = (syms, valid, Ns, 258, max_prob, 0x100)
+    trip = dm.fenwick_encode_streams(*args)
+    before = dict(_cuda.launches)
+    got = dm.fenwick_encode_streams(*(a.to(cuda) for a in args[:3]),
+                                    *args[3:])
+    for w, g in zip(trip, got):
+        assert torch.equal(g.cpu(), w)
+    for cap in (None, 2 * T // 3):
+        want = dm.fenwick_code_streams(*args, init, cap)
+        assert torch.equal(want[0], dc.batched_range_encode(
+            *trip, None, None, cap, init_state=init)[0])
+        coded = dc.batched_range_encode(*(t.to(cuda) for t in trip), None,
+                                        None, cap, init_state=init.to(cuda))
+        fused = dm.fenwick_code_streams(*(a.to(cuda) for a in args[:3]),
+                                        *args[3:], init.to(cuda), cap)
+        for w, c, f in zip(want, coded, fused):
+            assert torch.equal(c.cpu(), w) and torch.equal(f.cpu(), w)
+    assert _cuda.launches['fenwick_encode'] == before['fenwick_encode'] + 1
+    assert _cuda.launches['range_encode'] == before['range_encode'] + 2
+    assert _cuda.launches['fenwick_code'] == before['fenwick_code'] + 2
+
+
+def test_fenwick_code_flags_bad_input(cuda):
+    from compressjs_tpu_torch.ops import device_model as dm
+    s = torch.tensor([[5]], dtype=torch.int32, device=cuda)
+    v = torch.ones((1, 1), dtype=torch.bool, device=cuda)
+    init = torch.zeros((1, 5), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):   # a symbol outside the model
+        dm.fenwick_code_streams(s, v, torch.tensor([3], device=cuda), 8,
+                                0xFF00, 0x100, init)
+    with pytest.raises(ValueError):   # a lane wider than max_n
+        dm.fenwick_code_streams(s, v, torch.tensor([9], device=cuda), 8,
+                                0xFF00, 0x100, init)
+
+
 def test_fenwick_kernels_flag_bad_input(cuda):
     from compressjs_tpu_torch.ops import device_model as dm
     s = torch.tensor([[5]], dtype=torch.int32, device=cuda)
@@ -649,7 +719,8 @@ def test_fenwick_kernels_flag_bad_input(cuda):
 
 def test_bwtcp_and_bwtcl_on_card(cuda):
     """sample5's first 2,000,000 bytes at -9 through both formats on the
-    card, equal to the host codecs, and the BWTC-L stream back."""
+    card, equal to the host codecs, and the BWTC-L stream back; both
+    encodes launch the fused model and coder and neither unfused one."""
     data = _sample5()[:2000000]
     before = dict(_cuda.launches)
     got = bytes(cz.bwtcp_compress_device(data, level=9, device='cuda'))
@@ -657,6 +728,8 @@ def test_bwtcp_and_bwtcl_on_card(cuda):
     got = bytes(cz.bwtcl_compress_device(data, level=9, device='cuda'))
     assert got == bytes(cz.BWTCL.compress_file(data, None, 9))
     assert bytes(cz.bwtcl_decompress_device(got, device='cuda')) == data
-    for k in ('fenwick_encode', 'range_encode', 'fenwick_decode',
-              'mtf_scan', 'mtf_undo'):
+    for k in ('fenwick_code', 'fenwick_decode', 'mtf_scan', 'mtf_undo'):
         assert _cuda.launches[k] > before[k], k
+    # the encodes code through the fused entry alone
+    for k in ('fenwick_encode', 'range_encode'):
+        assert _cuda.launches[k] == before[k], k

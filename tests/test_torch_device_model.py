@@ -5,8 +5,10 @@ triples with the codecs' max_prob and with a low one (escapes and
 rescales, among them rescales inside the escape sub-step, whose sy_f
 the host reads before it), the decode from host-encoded lanes through
 the host coder's exported states (lanes that end exactly at their last
-byte, so the decoder reads the EOF byte), and the encode -> coder ->
-decode round trip.  Every comparison is exact."""
+byte, so the decoder reads the EOF byte), the encode -> coder ->
+decode round trip, and `fenwick_code_streams` (model and coder in one)
+against the JAX encode -> coder -> token_bytes composition.  Every
+comparison is exact."""
 
 import numpy as np
 import pytest
@@ -203,6 +205,90 @@ def test_encode_coder_decode_round_trip():
     np.testing.assert_array_equal(got.numpy(), syms)
 
 
+def _host_states(L, seed):
+    """(L, 5) exported states of host coders started on a random free
+    byte and length and advanced a few triples."""
+    rng = np.random.default_rng(seed)
+    states = []
+    for l in range(L):
+        rc = RangeCoder(BufferStream())
+        rc.encode_start(int(rng.integers(0, 256)), int(rng.integers(0, 4)))
+        for k in range(int(rng.integers(0, 40))):
+            rc.encode_freq(1 + k % 3, k % 5, 9)
+        states.append(rc.export_enc_state())
+    return np.stack(states)
+
+
+def _jax_code(syms, valid, Ns, max_n, max_prob, states, tok_cap, out_cap):
+    """The JAX package's encode -> coder -> token_bytes composition."""
+    trip = jdm.fenwick_encode_streams(jnp.asarray(syms), jnp.asarray(valid),
+                                      jnp.asarray(Ns), max_n, max_prob, INCR)
+    tok = jdc.batched_range_encode(*trip, None, None, tok_cap,
+                                   init_state=jnp.asarray(states))
+    return tok, jdc.token_bytes(*tok, out_cap)
+
+
+@pytest.mark.parametrize('max_prob,tok_cap', [(0xFF00, None),
+                                              (0x400, None), (0xFF00, 40)])
+def test_fenwick_code_streams_matches_jax(max_prob, tok_cap):
+    """Model and coder in one call equal the JAX package's encode ->
+    coder -> token_bytes composition bit for bit: ragged lanes of model
+    sizes 1 to 256 with holes in `valid` and one lane with no valid step,
+    coders continuing exported host states; tok_cap 40 overflows the
+    longer lanes (their counts still counted)."""
+    sizes = [1, 256, 2, 3, 40, 200, 255, 17, 90, 128]
+    T = 160
+    syms, valid = _lanes(4, sizes, T, zipf=1.2)
+    valid[1] = False                   # a lane with no valid step
+    valid[3, ::4] = False              # holes
+    valid[5, 10:30] = False
+    Ns = np.array([s + 1 for s in sizes], np.int32)
+    L = len(sizes)
+    states = _host_states(L, 5)
+    out_cap = 3 * 2 * T + 64
+    (jtok, jn, jbc), (jbyts, jlens) = _jax_code(syms, valid, Ns, 258,
+                                                max_prob, states, tok_cap,
+                                                out_cap)
+    tok, n, bc = dm.fenwick_code_streams(
+        torch.from_numpy(syms), torch.from_numpy(valid), torch.from_numpy(Ns),
+        258, max_prob, INCR, coder_states(states, 'cpu'), tok_cap)
+    cap = tok_cap if tok_cap is not None else 6 * T + 8
+    assert tok.shape == (L, cap, 3)
+    np.testing.assert_array_equal(tok.numpy().astype(np.int64),
+                                  np.asarray(jtok).astype(np.int64))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(bc.numpy(), np.asarray(jbc))
+    byts, lens = dc.token_bytes(tok, n, bc, out_cap)
+    np.testing.assert_array_equal(byts.numpy(), np.asarray(jbyts))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+    if tok_cap is not None:
+        assert int(n.max()) > tok_cap
+    # the same as the two plain versions in series
+    want = dc.batched_range_encode(*dm.fenwick_encode_streams(
+        torch.from_numpy(syms), torch.from_numpy(valid), torch.from_numpy(Ns),
+        258, max_prob, INCR), None, None, tok_cap,
+        init_state=coder_states(states, 'cpu'))
+    for a, b in zip((tok, n, bc), want):
+        assert torch.equal(a, b)
+
+
+def test_fenwick_code_streams_host_bytes():
+    """Lanes from fresh coders: each lane's bytes are the host model's."""
+    sizes = [4, 37, 200, 256]
+    syms, valid = _lanes(6, sizes, 300, zipf=1.1)
+    Ns = torch.tensor([s + 1 for s in sizes])
+    L = len(sizes)
+    zeros = torch.zeros(L, dtype=torch.int64)
+    tok = dm.fenwick_code_streams(torch.from_numpy(syms),
+                                  torch.from_numpy(valid), Ns, 258, 0x400,
+                                  INCR, dc.encoder_states(zeros, zeros))
+    byts, lens = dc.token_bytes(*tok, 3 * 600 + 16)
+    for l in range(L):
+        hb = _host_lane(syms[l][valid[l]], sizes[l], 0x400)
+        assert int(lens[l]) == len(hb)
+        np.testing.assert_array_equal(byts[l, :len(hb)].numpy(), hb)
+
+
 def test_max_n_bounds():
     s = torch.zeros((1, 2), dtype=torch.int32)
     v = torch.ones((1, 2), dtype=torch.bool)
@@ -217,6 +303,9 @@ def test_no_plain_version_off_the_cpu():
     with pytest.raises(RuntimeError):
         dm.fenwick_encode_streams(s, s.bool(), torch.full((2,), 5), 8,
                                   0xFF00, INCR)
+    with pytest.raises(RuntimeError):
+        dm.fenwick_code_streams(s, s.bool(), torch.full((2,), 5), 8, 0xFF00,
+                                INCR, torch.zeros((2, 5), dtype=torch.int64))
     with pytest.raises(RuntimeError):
         dm.fenwick_decode_streams(s.to(torch.uint8), torch.zeros((2, 4)),
                                   torch.full((2,), 5), 8, 0xFF00, INCR,
