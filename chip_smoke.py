@@ -48,7 +48,9 @@ decode scans and the range coder's against their plain versions on
 sample5's first -9 block as BWTC-L's 128 lanes, on the first 4,096
 steps of its BWTC-P lane and on random lanes with a low max_prob, and
 alone on the whole BWTC-P lane and on the 8-lane BWTC-P dispatch of
-sample5x4, where the fused entry equals the unfused two in series;
+sample5x4, where the fused entry equals the unfused two in series (and
+on that dispatch coded from fresh coder states, which the decode
+decodes back to its symbols);
 ``bwtcp_compress_device`` and ``bwtcl_compress_device`` of sample5x4 at
 -9 against the host codecs, ``bwtcl_decompress_device`` back, and in
 the NCCL group ``mesh_compress_bwtcp``.  It times the encode in each split (wall and the card's
@@ -1625,6 +1627,13 @@ def check_scans(syms, valid, Ns, max_prob, init, tok_cap, dev, reps,
     res['code_chain_floor_ms'] = res['coder_chain_floor_ms']
     res['code_level_chain_floor_ms'] = res['encode_chain_floor_ms']
     res['decode_chain_floor_ms'] = lane_valid * levels * smem_ns * 1e-6
+    # the decode's own design floor: a sub-decode (a valid triple) takes
+    # ceil(levels / k) shared-memory rounds, k the tree levels a descent
+    # round of the build takes
+    k = int(lib.cz_fenwick_decode_levels())
+    res['decode_levels_per_round'] = k
+    res['decode_round_floor_ms'] = lane_trip * -(-levels // k) * smem_ns * \
+        1e-6
     res['tokens'] = n_tok
     res['bytes'] = int(lens.sum())
     return res
@@ -1656,7 +1665,8 @@ def scan_phase(s5, s5x4, dev, smem_ns):
     decode what they coded, and on the 8-lane BWTC-P dispatch of
     sample5x4's first 8 blocks with the host's header states, the main
     path's shapes, where the fused entry equals the unfused two in
-    series."""
+    series, and on that dispatch from fresh coder states, where the
+    decode gives its symbols back."""
     from compressjs_tpu_torch.ops import device_coder as dc
     from compressjs_tpu_torch.ops import device_lane as dl
     inp = scan_inputs(s5, dev)
@@ -1696,6 +1706,12 @@ def scan_phase(s5, s5x4, dev, smem_ns):
     out['bwtcp_dispatch_8'] = check_scans(
         dsyms, dvalid, dNs, 0xFF00, dinit, tok_cap, dev, 3, smem_ns,
         plain=False, decode=False)
+    # the same lanes from fresh coders, so that the decode has a real
+    # stream to decode (8 lanes on 8 SMs: about one lane's time)
+    zeros = torch.zeros(dsyms.shape[0], dtype=torch.int64, device=dev)
+    out['bwtcp_dispatch_8_fresh'] = check_scans(
+        dsyms, dvalid, dNs, 0xFF00, dc.encoder_states(zeros, zeros),
+        tok_cap, dev, 3, smem_ns, plain=False)
     for name, r in out.items():
         if not isinstance(r, dict):
             continue
@@ -1703,7 +1719,8 @@ def scan_phase(s5, s5x4, dev, smem_ns):
               '%.4f, plain %s), coder %.4f ms (wrapper %.4f, plain %s), '
               'fused %.4f ms (wrapper %.4f, plain %s), decode %s '
               '(wrapper %s, plain %s); bounds %.5f / %.5f / %.5f ms / %s; '
-              'per-level chain floor %.4f ms, coder chain floor %.4f ms'
+              'per-level chain floor %.4f ms, coder chain floor %.4f ms, '
+              'decode round floor %s (%d levels a round)'
               % (name, r['lanes'], r['steps'], r['valid_steps'],
                  r['encode_ms'], r['encode_wrapper_ms'],
                  _ms(r.get('encode_plain_ms')), r['coder_ms'],
@@ -1715,7 +1732,9 @@ def scan_phase(s5, s5x4, dev, smem_ns):
                  r['coder_bound_ms'], r['code_bound_ms'],
                  _ms(r['decode_bound_ms'] if 'decode_ms' in r else None,
                      5), r['encode_chain_floor_ms'],
-                 r['coder_chain_floor_ms']))
+                 r['coder_chain_floor_ms'],
+                 _ms(r['decode_round_floor_ms'] if 'decode_ms' in r
+                     else None, 4), r['decode_levels_per_round']))
     print('  the plain versions walk every step of the BWTC-L lanes and of '
           'the random lanes, and the first 4,096 of the BWTC-P lane\'s '
           '900,001 (all of them would outlast the smoke\'s time limit); '
@@ -2471,9 +2490,9 @@ def main():
     # the scan kernels: times, plain times and bounds at BWTC-L's 128
     # lanes of sample5's first -9 block (every step through the plain
     # versions too), and the kernels alone on its whole BWTC-P lane and on
-    # the 8-lane dispatch of sample5x4 (the encode's kernels; the decode
-    # on the lane); the two unfused encode kernels are on no path since
-    # the fused entry took their place
+    # the 8-lane dispatch of sample5x4 (the decode's from fresh coder
+    # states); the two unfused encode kernels are on no path since the
+    # fused entry took their place
     checked = [scans[k] for k in ('bwtcl_lanes', 'bwtcp_lane_4096',
                                   'random_0x400')]
     lanes_l, lane_p = scans['bwtcl_lanes'], scans['bwtcp_lane_full']
@@ -2509,12 +2528,18 @@ def main():
             'bwtcp_lane_chain_floor_ms': lane_p[key + '_chain_floor_ms'],
             'bwtcp_lane_4096_ms': scans['bwtcp_lane_4096'][key + '_ms'],
             'random_0x400_ms': scans['random_0x400'][key + '_ms']}
-        if key != 'decode':
+        d = scans['bwtcp_dispatch_8_fresh'] if key == 'decode' else disp
+        entry.update(
+            bwtcp_dispatch_8_ms=d[key + '_ms'],
+            bwtcp_dispatch_8_wrapper_ms=d[key + '_wrapper_ms'],
+            bwtcp_dispatch_8_bound_ms=d[key + '_bound_ms'],
+            bwtcp_dispatch_8_chain_floor_ms=d[key + '_chain_floor_ms'])
+        if key == 'decode':
             entry.update(
-                bwtcp_dispatch_8_ms=disp[key + '_ms'],
-                bwtcp_dispatch_8_wrapper_ms=disp[key + '_wrapper_ms'],
-                bwtcp_dispatch_8_bound_ms=disp[key + '_bound_ms'],
-                bwtcp_dispatch_8_chain_floor_ms=disp[key + '_chain_floor_ms'])
+                levels_per_round=lanes_l['decode_levels_per_round'],
+                round_floor_ms=lanes_l['decode_round_floor_ms'],
+                bwtcp_lane_round_floor_ms=lane_p['decode_round_floor_ms'],
+                bwtcp_dispatch_8_round_floor_ms=d['decode_round_floor_ms'])
         if key == 'code':
             entry.update(
                 max_abs_err_vs_series=max(

@@ -108,47 +108,6 @@ struct Args {
   int32_t* err;
 };
 
-// 1 + the index of the row's last non-zero byte (0 if none), by the whole
-// block: 16-byte loads on the row's aligned middle, bytes at its ends.
-__device__ int64_t valid_end(const uint8_t* __restrict__ row, int64_t n,
-                             int64_t* red) {
-  const int tid = threadIdx.x;
-  int64_t best = 0;
-  int64_t head = static_cast<int64_t>(
-      (16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15);
-  if (head > n) head = n;
-  const int64_t nvec = (n - head) >> 4;
-  const uint4* vec = reinterpret_cast<const uint4*>(row + head);
-#pragma unroll 4
-  for (int64_t k = tid; k < nvec; k += kThreads) {
-    const uint4 w = vec[k];
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-    for (int j = 3; j >= 0; --j) {
-      if (words[j]) {
-        const int64_t at = head + 16 * k + 4 * j +
-                           ((31 - __clz(words[j])) >> 3) + 1;
-        best = at > best ? at : best;
-        break;
-      }
-    }
-  }
-  for (int64_t i = tid; i < head; i += kThreads) {
-    if (row[i]) best = i + 1 > best ? i + 1 : best;
-  }
-  for (int64_t i = head + 16 * nvec + tid; i < n; i += kThreads) {
-    if (row[i]) best = i + 1 > best ? i + 1 : best;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const int64_t o = __shfl_xor_sync(kFullWarp, best, off);
-    best = o > best ? o : best;
-  }
-  if ((tid & 31) == 0) red[tid >> 5] = best;
-  __syncthreads();
-  best = 0;
-  for (int w = 0; w < kWarps; ++w) best = red[w] > best ? red[w] : best;
-  return best;
-}
-
 struct Triple {
   uint32_t sy, lt, tot;
 };
@@ -286,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) encode_kernel(Args p) {
       return;
     }
   }
-  const int64_t end = valid_end(p.valid + row, T, red);
+  const int64_t end = fenwick::valid_end<kWarps>(p.valid + row, T, red);
   // kCoder: warp 0 codes; kCode: warp 0 models, warp 1 codes; kModel:
   // warp 0 models, then every warp writes the static tail
   if (M != kModel && warp > (M == kCode ? 1 : 0)) return;

@@ -1,5 +1,6 @@
 // The adaptive Fenwick model's tree, one per lane in shared memory, for the
-// encode and decode scans (fenwick_encode.cu, fenwick_decode.cu).
+// encode and decode scans (fenwick_encode.cu, fenwick_decode.cu), and what
+// both scans do with a lane's valid bytes.
 //
 // The tree is the host FenwickModel's heap layout (host/fenwick_model.py,
 // and compressjs_tpu/ops/device_model.py's (L, 2 * max_n) array): node i
@@ -8,15 +9,10 @@
 // the escape counts in its low 16 bits and the symbol counts in its high
 // 16.  Nodes in [2N, 2 * max_n) stay 0, as in the JAX array.
 //
-// Two layouts:
-//
-// * one thread a lane (fenwick_decode.cu): the lanes of a block interleave
-//   their trees, node i of the block's lane k at word i * blockDim.x + k,
-//   so that the lanes' reads of one node (the root, above all) fall in
-//   distinct banks (Tree, init_tree, rescale);
-// * one warp a lane (fenwick_encode.cu): node i at word i, and the warp's
-//   32 threads share each tree operation (the *_warp functions, which
-//   every thread of the warp calls with its lane index).
+// Both scans take a block a lane, and the lane's tree sits at word i for
+// node i.  One warp keeps it: its 32 threads share each tree operation
+// (the *_warp functions, which every thread of the warp calls with its
+// lane index).
 #pragma once
 
 #include <cstdint>
@@ -27,69 +23,6 @@ constexpr uint32_t kEscMask = 0x0000FFFFu;
 constexpr uint32_t kSymMask = 0xFFFF0000u;
 constexpr uint32_t kScaleMask = 0xFFFEFFFEu;
 constexpr int kSymShift = 16;
-// lanes a block: 16 trees of max_n 258 are 33 KB, inside the 48 KB a
-// block gets without opting in
-constexpr int kLanesPerBlock = 16;
-constexpr int kSmemBytes = 48 * 1024;
-
-struct Tree {
-  uint32_t* base;  // the lane's node 0
-  int stride;      // blockDim.x
-  __device__ __forceinline__ uint32_t& operator[](int i) const {
-    return base[i * stride];
-  }
-};
-
-// Node i's index clamped into [0, width): the JAX package reads
-// tree[min(i, width - 1)] for a lane whose step is masked off.
-__device__ __forceinline__ int clamp_node(int64_t i, int width) {
-  return i < 0 ? 0 : (i >= width ? width - 1 : static_cast<int>(i));
-}
-
-// Internal sums, i = N - 1 .. 1 (host FenwickModel._sum_tree).
-__device__ __forceinline__ void sum_tree(const Tree& t, int N) {
-  for (int i = N - 1; i > 0; --i) t[i] = t[2 * i] + t[2 * i + 1];
-}
-
-// host FenwickModel.__init__: symbols 0 .. N-2 carry one escape count, the
-// escape symbol N-1 the increment in the symbol plane.
-__device__ __forceinline__ void init_tree(const Tree& t, int N, int width,
-                                          uint32_t increment) {
-  for (int i = 0; i < width; ++i) t[i] = 0;
-  for (int i = N; i < 2 * N - 1; ++i) t[i] = 1;
-  t[2 * N - 1] = increment << kSymShift;
-  sum_tree(t, N);
-}
-
-// host FenwickModel._rescale: halve the symbol leaves (a leaf that still
-// carries an escape count is kept), give a leaf that halves to 0 an
-// escape count, then the escape leaf: 0 where no leaf carries an escape,
-// else halved (at least 1 << 16); then the internal sums.
-__device__ __forceinline__ void rescale(const Tree& t, int N) {
-  bool no_escape = true;
-  for (int i = N; i < 2 * N - 1; ++i) {
-    uint32_t p = t[i];
-    if (p & kEscMask) {
-      no_escape = false;
-      continue;
-    }
-    p = (p & kScaleMask) >> 1;
-    if (p == 0) {
-      p = 1;
-      no_escape = false;
-    }
-    t[i] = p;
-  }
-  uint32_t p = (t[2 * N - 1] & kScaleMask) >> 1;
-  if (no_escape) {
-    p = 0;
-  } else if (p == 0) {
-    p = 1u << kSymShift;
-  }
-  t[2 * N - 1] = p;
-  sum_tree(t, N);
-}
-
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
 // Internal sums, level by level from the deepest (the plain _sum_tree),
@@ -105,7 +38,9 @@ __device__ __forceinline__ void sum_tree_warp(uint32_t* t, int N, int lane) {
   }
 }
 
-// init_tree by a warp; returns the root.
+// host FenwickModel.__init__ by a warp: the nodes of [0, width) zeroed,
+// symbols 0 .. N-2 one escape count, the escape symbol N-1 the increment
+// in the symbol plane, then the internal sums; returns the root.
 __device__ __forceinline__ uint32_t init_tree_warp(uint32_t* t, int N,
                                                    int width,
                                                    uint32_t increment,
@@ -119,9 +54,12 @@ __device__ __forceinline__ uint32_t init_tree_warp(uint32_t* t, int N,
   return t[1];
 }
 
-// rescale by a warp: each thread halves every 32nd symbol leaf, the
-// warp's vote decides whether any leaf still carries an escape count,
-// then the escape leaf and the sums.  Returns the new root.  The first
+// host FenwickModel._rescale by a warp: each thread halves every 32nd
+// symbol leaf (a leaf that still carries an escape count is kept, one
+// that halves to 0 gets an escape count), the warp's vote decides whether
+// any leaf still carries an escape count, then the escape leaf (0 where
+// none does, else halved, at least 1 << 16) and the sums.  Returns the
+// new root.  The first
 // __syncwarp orders every thread's earlier reads of the tree before the
 // writes.
 __device__ __forceinline__ uint32_t rescale_warp(uint32_t* t, int N,
@@ -180,11 +118,48 @@ __device__ __forceinline__ void walk_warp(uint32_t* t, int leaf,
   __syncwarp();
 }
 
-// Lanes a block for trees of 2 * max_n words: kLanesPerBlock, fewer where
-// those would pass kSmemBytes.
-inline int lanes_per_block(int max_n) {
-  const int fit = kSmemBytes / (8 * max_n);
-  return fit < 1 ? 1 : (fit < kLanesPerBlock ? fit : kLanesPerBlock);
+// 1 + the index of the row's last non-zero byte (0 if none), by the whole
+// block of kWarps warps: 16-byte loads on the row's aligned middle, bytes
+// at its ends.  `red` holds kWarps words; every thread returns the end.
+template <int kWarps>
+__device__ int64_t valid_end(const uint8_t* __restrict__ row, int64_t n,
+                             int64_t* red) {
+  constexpr int kThreads = 32 * kWarps;
+  const int tid = threadIdx.x;
+  int64_t best = 0;
+  int64_t head = static_cast<int64_t>(
+      (16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15);
+  if (head > n) head = n;
+  const int64_t nvec = (n - head) >> 4;
+  const uint4* vec = reinterpret_cast<const uint4*>(row + head);
+#pragma unroll 4
+  for (int64_t k = tid; k < nvec; k += kThreads) {
+    const uint4 w = vec[k];
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    for (int j = 3; j >= 0; --j) {
+      if (words[j]) {
+        const int64_t at = head + 16 * k + 4 * j +
+                           ((31 - __clz(words[j])) >> 3) + 1;
+        best = at > best ? at : best;
+        break;
+      }
+    }
+  }
+  for (int64_t i = tid; i < head; i += kThreads) {
+    if (row[i]) best = i + 1 > best ? i + 1 : best;
+  }
+  for (int64_t i = head + 16 * nvec + tid; i < n; i += kThreads) {
+    if (row[i]) best = i + 1 > best ? i + 1 : best;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const int64_t o = __shfl_xor_sync(kFullWarp, best, off);
+    best = o > best ? o : best;
+  }
+  if ((tid & 31) == 0) red[tid >> 5] = best;
+  __syncthreads();
+  best = 0;
+  for (int w = 0; w < kWarps; ++w) best = red[w] > best ? red[w] : best;
+  return best;
 }
 
 }  // namespace fenwick

@@ -148,6 +148,8 @@ def _bind(lib):
     lib.cz_fenwick_decode.argtypes = [p, i64, p, p, p, i32, i64, i32, i32,
                                       i32, p, p, p]
     lib.cz_fenwick_decode.restype = i32
+    lib.cz_fenwick_decode_levels.argtypes = []
+    lib.cz_fenwick_decode_levels.restype = i32
     return lib
 
 

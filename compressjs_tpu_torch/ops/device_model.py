@@ -18,8 +18,8 @@ the halving rescale with re-escape.
   every decoded frequency).
 
 For a CUDA tensor each is one launch of its kernel
-(``csrc/fenwick_encode.cu``: a warp a lane, its tree in shared memory;
-``csrc/fenwick_decode.cu``: a thread a lane); for a CPU tensor its plain
+(``csrc/fenwick_encode.cu`` and ``csrc/fenwick_decode.cu``: a block a
+lane, its tree in shared memory); for a CPU tensor its plain
 version runs, one vector step per symbol over all lanes, in int64
 masked to 32 bits where the JAX package's uint32 wraps.  Symbols are
 non-negative.
@@ -384,9 +384,10 @@ def fenwick_decode_streams(payload, coder_state, Ns, max_n, max_prob,
     to decode (a lane's state does not move on the others).
 
     Returns (symbols (L, T) int32, (low, range, buffer, pos) int64 lane
-    vectors): symbols in [0, N - 2], 1 - N at masked steps.  For a CUDA
-    tensor one launch of ``csrc/fenwick_decode.cu`` (raises if a lane's
-    N is out of range); for a CPU tensor `fenwick_decode_streams_plain`."""
+    vectors): symbols in [0, N - 2], 1 - N at masked steps.  Read
+    positions are not negative.  For a CUDA tensor one launch of
+    ``csrc/fenwick_decode.cu`` (raises if a lane's N is out of range);
+    for a CPU tensor `fenwick_decode_streams_plain`."""
     _check_max_n(max_n)
     if payload.device.type == 'cpu':
         return fenwick_decode_streams_plain(payload, coder_state, Ns, max_n,

@@ -688,6 +688,73 @@ def test_encode_entries_match_plain(cuda, L, max_prob):
     assert _cuda.launches['fenwick_code'] == before['fenwick_code'] + 2
 
 
+@pytest.mark.parametrize('max_prob', [0xFF00, 0x400])
+@pytest.mark.parametrize('L', [1, 8, 20, 128])
+def test_decode_entry_matches_plain(cuda, L, max_prob):
+    """csrc/fenwick_decode.cu (a block a lane) against its plain version
+    symbol for symbol and state for state at L = 1, 8, 20 and 128 lanes:
+    the lanes of _scan_lanes (one with no valid step, one whose only
+    valid step is its first, holes every fifth step, model sizes down to
+    N = 2) coded from exported coder states, payload rows exactly the
+    longest lane's length and 8 bytes wider, decoders started fresh and
+    from the states a decode of the first third of the steps exported;
+    one launch a call."""
+    from compressjs_tpu_torch.ops import device_coder as dc
+    from compressjs_tpu_torch.ops import device_model as dm
+    T = 400 if L <= 20 else 150
+    syms, valid, Ns = _scan_lanes(L + max_prob + 1, L, T)
+    rng = np.random.default_rng(L + 1)
+    init = dc.encoder_states(torch.from_numpy(rng.integers(0, 256, L)),
+                             torch.from_numpy(rng.integers(0, 4, L)))
+    args = (Ns, 258, max_prob, 0x100)
+    tok = dm.fenwick_code_streams(syms, valid, *args, init)
+    byts, lens = dc.token_bytes(*tok, 6 * T + 64)
+    fresh = torch.stack(dc.dec_start_state(
+        byts, torch.ones(L, dtype=torch.int64)), 1)
+    part = valid.clone()
+    part[:, T // 3:] = False
+    mid = torch.stack(dm.fenwick_decode_streams(byts, fresh, *args,
+                                                part)[1], 1)
+    assert bool((mid[:, 3] > 1).any())
+    for wide in (0, 8):
+        pay = byts[:, :int(lens.max()) + wide].contiguous()
+        for state in (fresh, mid):
+            want, wst = dm.fenwick_decode_streams(pay, state, *args, valid)
+            before = _cuda.launches['fenwick_decode']
+            got, gst = dm.fenwick_decode_streams(
+                pay.to(cuda), state.to(cuda), Ns.to(cuda), *args[1:],
+                valid.to(cuda))
+            assert _cuda.launches['fenwick_decode'] == before + 1
+            assert torch.equal(got.cpu(), want)
+            for a, b in zip(gst, wst):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_decode_kernel_wide_counts_match_plain(cuda):
+    """max_prob + increment above 0x10000, where a root's symbol count
+    can pass 16 bits (and a node's count its plane's total): the
+    kernel's clamped variant against the plain version, symbols and
+    states."""
+    from compressjs_tpu_torch.ops import device_coder as dc
+    from compressjs_tpu_torch.ops import device_model as dm
+    L, T = 8, 1500
+    syms, valid, Ns = _scan_lanes(5, L, T)
+    zeros = torch.zeros(L, dtype=torch.int64)
+    args = (Ns, 258, 0xFFF0, 0x100)
+    tok = dm.fenwick_code_streams(syms, valid, *args,
+                                  dc.encoder_states(zeros, zeros), 6 * T + 8)
+    byts, lens = dc.token_bytes(*tok, 6 * T + 64)
+    byts = byts[:, :int(lens.max())].contiguous()
+    state = torch.stack(dc.dec_start_state(byts, zeros + 1), 1)
+    want, wst = dm.fenwick_decode_streams(byts, state, *args, valid)
+    got, gst = dm.fenwick_decode_streams(byts.to(cuda), state.to(cuda),
+                                         Ns.to(cuda), *args[1:],
+                                         valid.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    for a, b in zip(gst, wst):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_fenwick_code_flags_bad_input(cuda):
     from compressjs_tpu_torch.ops import device_model as dm
     s = torch.tensor([[5]], dtype=torch.int32, device=cuda)

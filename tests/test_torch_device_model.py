@@ -177,6 +177,41 @@ def test_fenwick_decode_streams_matches_jax_and_host(max_prob, exact):
     assert (got.numpy()[1, 300:] == 1 - Ns[1]).all()
 
 
+@pytest.mark.parametrize('case', ['no_valid_step', 'holes', 'n2',
+                                  'lanes20'])
+def test_fenwick_decode_plain_edge_cases_match_jax(case):
+    """The plain decode against the JAX function on the edge cases the
+    card kernel is held to it on: a lane with no valid step, holes inside
+    lanes, a model of N = 2, 20 lanes; host-encoded lanes from their
+    exported states, symbols and states exact."""
+    sizes = {'no_valid_step': [7, 30, 256], 'holes': [12, 100, 200],
+             'n2': [1, 1, 5],
+             'lanes20': [1 + (37 * l) % 256 for l in range(20)]}[case]
+    T = 120
+    payload, states, syms = _host_streams(11, sizes, T, 0x500, False)
+    Ns = np.array([s + 1 for s in sizes], np.int32)
+    valid = np.ones((len(sizes), T), bool)
+    if case == 'no_valid_step':
+        valid[1] = False
+    if case in ('holes', 'lanes20'):
+        valid[0, ::5] = False
+        valid[2, 30:50] = False
+    got, st = dm.fenwick_decode_streams(
+        torch.from_numpy(payload), coder_states(states, 'cpu'),
+        torch.from_numpy(Ns), 257, 0x500, INCR, torch.from_numpy(valid))
+    want, jst = jdm.fenwick_decode_streams(
+        jnp.asarray(payload), jnp.asarray(states), jnp.asarray(Ns), 257,
+        0x500, INCR, jnp.asarray(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for a, b in zip(st, jst):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (got.numpy()[~valid] == np.repeat(1 - Ns, T).reshape(-1, T)[
+        ~valid]).all()
+    if case in ('no_valid_step', 'n2'):
+        # no hole before a lane's steps: they decode to the host's symbols
+        np.testing.assert_array_equal(got.numpy()[valid], syms[valid])
+
+
 def test_encode_coder_decode_round_trip():
     """Port encode -> coder -> bytes -> port decode, from the free byte
     (decode_start's skip-initial-read form at byte 1), no host coder in

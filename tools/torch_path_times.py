@@ -13,7 +13,9 @@ paths: the -9 encode (``compress_file_device``) and decode
 device entropy, in an NCCL process group of this process alone (a
 FileStore in a temporary directory, no network);
 ``decompress_file_parallel``; ``hetero_compress_bzip2`` (two host
-workers) and ``compress_file_device`` of sample5x4 tiled three times.
+workers) and ``compress_file_device`` of sample5x4 tiled three times;
+``bwtcl_decompress_device`` of sample5x4's -9 BWTC-L stream (the host
+codec's).
 One warm-up call of each, then N rounds, each calling every path once
 in an order rotated by one per round.  Every output is checked.  Prints
 one JSON object (each path's walls and median, the card's name and
@@ -62,6 +64,7 @@ def main():
     data = bz2.decompress(comp)
     tiled = data * 3
     tiled_comp = cz.compress_file_device(tiled, level=9)
+    bwtcl_comp = bytes(cz.BWTCL.compress_file(data, None, 9))
     if bz2.decompress(tiled_comp) != tiled:
         raise AssertionError('the tiled input does not round-trip')
     os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
@@ -92,7 +95,10 @@ def main():
                  tiled_comp),
                 ('compress_file_device_tiled',
                  lambda: cz.compress_file_device(tiled, level=9),
-                 tiled_comp)]
+                 tiled_comp),
+                ('bwtcl_decompress_device',
+                 lambda: bytes(cz.bwtcl_decompress_device(bwtcl_comp)),
+                 data)]
             walls = {name: [] for name, _, _ in paths}
 
             def run(name, fn, want):
