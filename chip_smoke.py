@@ -53,7 +53,14 @@ on that dispatch coded from fresh coder states, which the decode
 decodes back to its symbols);
 ``bwtcp_compress_device`` and ``bwtcl_compress_device`` of sample5x4 at
 -9 against the host codecs, ``bwtcl_decompress_device`` back, and in
-the NCCL group ``mesh_compress_bwtcp``.  It times the encode in each split (wall and the card's
+the NCCL group ``mesh_compress_bwtcp``.  Then the command line
+(``compressjs_tpu_torch.cli``): in this process -z -t bzip2 -9 of
+sample5x4 against its golden (mtf_scan and code_lengths launched) and
+-d back, -z -t bwtcp -9 (fenwick_code launched) and -z -t bwtc -9
+against the host codecs' bytes, and every host codec's round trip of
+sample5 at level 7; and one ``python -m compressjs_tpu_torch.cli``
+subprocess, -z -t bzip2 -9 of sample5 from stdin to stdout against its
+golden.  It times the encode in each split (wall and the card's
 idle share), the decode, each multi-block path, each BWTC path and each
 kernel, and prints:
 
@@ -1923,6 +1930,113 @@ def mode_timing(cz, data, want, kw):
     return wall, pwall, busy, 1 - busy / (pwall * 1e3)
 
 
+# the host codecs the command line runs on every device, at their
+# default level (7): (dispatch key, class name)
+CLI_HOST_CODECS = (('lzp3', 'Lzp3'), ('lzjb', 'Lzjb'), ('lzjbr', 'LzjbR'),
+                   ('ppm', 'PPM'), ('dmc', 'Dmc'), ('simple', 'Simple'),
+                   ('defsum', 'DefSumModel'), ('fenwick', 'FenwickModel'),
+                   ('mtf', 'MTFModel'), ('context1', 'Context1Model'),
+                   ('no', 'NoModel'), ('huff', 'Huffman'))
+
+
+def cli_phase(cz, s5, s5_comp, s5x4, s5x4_comp, card):
+    """Phase "CLI on the card": ``compressjs_tpu_torch.cli.main`` in this
+    process on files in a temporary directory -- -z -t bzip2 -9 of
+    sample5x4 against its golden with mtf_scan and code_lengths launched,
+    -d back; -z -t bwtcp -9 (fenwick_code launched) and -z -t bwtc -9
+    against the host codecs' bytes; every host codec round trip on
+    sample5 at level 7 -- and one ``python -m compressjs_tpu_torch.cli``
+    subprocess (-z -t bzip2 -9 of sample5 through stdin and stdout,
+    against its golden).  Returns each call's wall, MB/s and launches,
+    and the launches of the card routes by path."""
+    import tempfile
+    from compressjs_tpu_torch import cli
+
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        def call(label, argv, nbytes):
+            code, wall, counts = run_counted(cli.main, argv)
+            if code != 0:
+                raise AssertionError('cli %s exited %s' % (argv, code))
+            res[label] = {'wall_s': wall, 'mb_s': nbytes / wall / 1e6,
+                          'launches': {k: v for k, v in counts.items()
+                                       if v}}
+            print('  %-28s wall %.4f s (%.3f MB/s of input); launches %s; '
+                  '%s' % (label, wall, nbytes / wall / 1e6,
+                          res[label]['launches'], card), flush=True)
+            return counts
+
+        def read(name):
+            with open(path(name), 'rb') as f:
+                return f.read()
+
+        for name, data in (('s5', s5), ('s5x4', s5x4)):
+            with open(path(name), 'wb') as f:
+                f.write(data)
+        n = len(s5x4)
+        c = call('-z -t bzip2 -9', ['-z', '-t', 'bzip2', '-9', path('s5x4'),
+                                    path('s5x4.bz2')], n)
+        if read('s5x4.bz2') != s5x4_comp:
+            raise AssertionError('cli bzip2 -9 encode differs from golden')
+        if not (c['mtf_scan'] > 0 and c['code_lengths'] > 0):
+            raise AssertionError('cli bzip2 encode launched no mtf_scan or '
+                                 'code_lengths: %s' % c)
+        launches['cli_bzip2'] = c
+        call('-d -t bzip2', ['-d', '-t', 'bzip2', path('s5x4.bz2'),
+                             path('s5x4.out')], n)
+        if read('s5x4.out') != s5x4:
+            raise AssertionError('cli bzip2 decode differs')
+        c = call('-z -t bwtcp -9', ['-z', '-t', 'bwtcp', '-9', path('s5x4'),
+                                    path('s5x4.bwtp')], n)
+        if c['fenwick_code'] == 0:
+            raise AssertionError('cli bwtcp encode launched no fenwick_code')
+        launches['cli_bwtcp'] = c
+        if read('s5x4.bwtp') != bytes(cz.BWTCP.compress_file(s5x4, None, 9)):
+            raise AssertionError('cli bwtcp encode differs from host BWTCP')
+        launches['cli_bwtc'] = call(
+            '-z -t bwtc -9', ['-z', '-t', 'bwtc', '-9', path('s5x4'),
+                              path('s5x4.bwtc')], n)
+        if read('s5x4.bwtc') != bytes(cz.BWTC.compress_file(s5x4, None, 9)):
+            raise AssertionError('cli bwtc encode differs from host BWTC')
+        call('-d -t bwtcp', ['-d', '-t', 'bwtcp', path('s5x4.bwtp'),
+                             path('s5x4.bwtp.out')], n)
+        if read('s5x4.bwtp.out') != s5x4:
+            raise AssertionError('cli bwtcp decode differs')
+        for key, name in CLI_HOST_CODECS:
+            c = call('-z -t %s' % key, ['-z', '-t', key, path('s5'),
+                                        path('s5.' + key)], len(s5))
+            if any(c.values()):
+                raise AssertionError('host codec %s launched a kernel'
+                                     % key)
+            call('-d -t %s' % key, ['-d', '-t', key, path('s5.' + key),
+                                    path('s5.' + key + '.out')], len(s5))
+            if read('s5.' + key + '.out') != s5:
+                raise AssertionError('cli %s round trip differs' % key)
+            res['-z -t %s' % key]['ratio'] = \
+                os.path.getsize(path('s5.' + key)) / len(s5)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'compressjs_tpu_torch.cli', '-z', '-t',
+             'bzip2', '-9'], input=s5, capture_output=True, env=env,
+            cwd=ROOT, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or proc.stdout != s5_comp:
+            raise AssertionError('python -m compressjs_tpu_torch.cli -z -t '
+                                 'bzip2 -9 (stdin to stdout) failed: rc %d, '
+                                 '%s' % (proc.returncode, proc.stderr[-2000:]))
+        res['python -m cli -z -t bzip2 -9 (stdin, stdout)'] = {
+            'wall_s': wall, 'mb_s': len(s5) / wall / 1e6}
+        print('  python -m compressjs_tpu_torch.cli -z -t bzip2 -9 < sample5: '
+              'wall %.4f s with the interpreter, torch import and kernel '
+              'build reuse (%.3f MB/s); equals the golden; %s'
+              % (wall, len(s5) / wall / 1e6, card), flush=True)
+    return res, launches
+
+
 def main():
     t_start = time.perf_counter()
     # a hang anywhere prints every thread's stack and exits non-zero
@@ -2276,6 +2390,9 @@ def main():
     phase('reference ties')
     ref_ties = ref_ties_phase(cz, s5x4)
 
+    phase('CLI on the card')
+    cli_res, cli_launches = cli_phase(cz, s5, s5_comp, s5x4, s5x4_comp, card)
+
     phase('timing')
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -2353,7 +2470,7 @@ def main():
         bwtcl_compress_device=bwtcl['encode_launches'],
         bwtcl_decompress_device=bwtcl['decode_launches'],
         mesh_compress_bwtcp=mesh_extra['mesh BWTC-P (NCCL, 1 rank)'][
-            'launches'])
+            'launches'], **cli_launches)
 
     def total(name):
         return sum(p[name] for p in path_launches.values())
@@ -2566,6 +2683,8 @@ def main():
         'bwtcl': bwtcl,
         'mesh_compress_bwtcp': mesh_extra['mesh BWTC-P (NCCL, 1 rank)'],
         'card': card, 'host_cpu': host_cpu}))
+    print('CLI paths: ' + json.dumps({'calls': cli_res, 'card': card,
+                                      'host_cpu': host_cpu}))
     print('smoke total %.1f s' % (time.perf_counter() - t_start))
     print(card)
     print(json.dumps({'kernels': kernels}))

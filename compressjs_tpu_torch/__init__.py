@@ -40,6 +40,17 @@ kernel's plain version runs instead):
 On the host only: `decompress_file_parallel` decodes whole blocks on a
 thread pool with the native block decoder.
 
+The JAX package's namespace, on the host (``host``, copies of its
+codecs, coders and models): the classes `Stream`, `BitStream`, `BWT`,
+`RangeCoder`, `DummyRangeCoder`, `Huffman`, `HuffmanAllocator`,
+`MTFModel`, `FenwickModel`, `DefSumModel`, `Context1Model`, `NoModel`,
+`LogDistanceModel` and `DeflateDistanceModel`, and the codecs `Bzip2`,
+`BWTC`, `BWTCP`, `Lzp3`, `Lzjb`, `LzjbR`, `PPM`, `Dmc` and `Simple`
+(loaded at first use), each with ``compress_file`` / ``decompress_file``
+byte for byte the JAX package's.  ``python -m compressjs_tpu_torch.cli``
+is its command line, with the bzip2, BWTC and BWTC-P encodes on the
+card (``--device``).
+
 The host stages run in a native runtime (``native``, C++ built by g++ at
 first use).  Hand-written CUDA kernels carry the MTF scan, the Huffman
 length allocator, the windowed map composition, the selector chase, the
@@ -47,8 +58,23 @@ MTF undo, and the Fenwick model's encode and decode scans and the range
 coder's.  The package imports neither JAX nor compressjs_tpu.
 """
 
+__version__ = '0.1.0'
+
+from .host import bwt as BWT
+from .host import huffman_allocator as HuffmanAllocator
 from .host.bwtcl import BWTCL
 from .host.bwtcp import BWTCP
+from .host.context1_model import Context1Model
+from .host.defsum_model import DefSumModel
+from .host.deflate_distance_model import DeflateDistanceModel
+from .host.dummy_range_coder import DummyRangeCoder
+from .host.fenwick_model import FenwickModel
+from .host.huffman import Huffman
+from .host.log_distance_model import LogDistanceModel
+from .host.mtf_model import MTFModel
+from .host.no_model import NoModel
+from .host.range_coder import RangeCoder
+from .host.stream import BitStream, Stream
 from .parallel.decode import (decompress_file_device, decompress_file_mesh,
                               decompress_file_parallel)
 from .parallel.hetero import hetero_compress_bzip2
@@ -57,9 +83,42 @@ from .parallel.pipeline import (DeviceBWTCEncoder, DeviceBzip2Encoder,
                                 bwtcl_compress_device, bwtcl_decompress_device,
                                 bwtcp_compress_device, compress_file_device)
 
-__all__ = ['BWTCL', 'BWTCP', 'DeviceBWTCEncoder', 'DeviceBzip2Encoder',
+version = __version__
+
+# the codecs load at first use (``__getattr__``), as in the JAX package
+_CODEC_MODULES = {
+    'Bzip2': '.host.bzip2',
+    'BWTC': '.host.bwtc',
+    'Lzp3': '.host.lzp3',
+    'Lzjb': '.host.lzjb',
+    'LzjbR': '.host.lzjbr',
+    'PPM': '.host.ppm',
+    'Dmc': '.host.dmc',
+    'Simple': '.host.simple',
+}
+
+__all__ = ['BWT', 'BWTC', 'BWTCL', 'BWTCP', 'BitStream', 'Bzip2',
+           'Context1Model', 'DefSumModel', 'DeflateDistanceModel',
+           'DeviceBWTCEncoder', 'DeviceBzip2Encoder', 'Dmc',
+           'DummyRangeCoder', 'FenwickModel', 'Huffman', 'HuffmanAllocator',
+           'LogDistanceModel', 'Lzjb', 'LzjbR', 'Lzp3', 'MTFModel',
+           'NoModel', 'PPM', 'RangeCoder', 'Simple', 'Stream',
            'bwtcl_compress_device', 'bwtcl_decompress_device',
            'bwtcp_compress_device', 'compress_file_device',
            'decompress_file_device', 'decompress_file_mesh',
            'decompress_file_parallel', 'hetero_compress_bzip2', 'make_mesh',
-           'mesh_compress_bwtcp', 'mesh_compress_bzip2']
+           'mesh_compress_bwtcp', 'mesh_compress_bzip2', 'version']
+
+
+def __getattr__(name):
+    if name in _CODEC_MODULES:
+        import importlib
+        obj = getattr(importlib.import_module(_CODEC_MODULES[name],
+                                              __name__), name)
+        globals()[name] = obj
+        return obj
+    raise AttributeError(name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_CODEC_MODULES))

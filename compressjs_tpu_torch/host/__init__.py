@@ -10,8 +10,12 @@ RLE2, the Huffman group optimisation and payload, the cyclic BWT), and
 the host block decode of the parallel and mesh decoders (the inverse
 BWT, the RLE1 undo); and the BWTC codec (`bwtc`) with what it calls:
 the range coder, the four models, MTF, the zero-run digits, the
-EOF-terminated BWT (in `bwt`), the streams and the container helpers.
-The sequential scans among them call the native runtime (``native``)
-and keep a numpy twin for the tests.  They are copied rather than
+EOF-terminated BWT (in `bwt`), the streams and the container helpers;
+and the rest of the JAX package's public layer: the `Bzip2` codec class
+(`bzip2`), the codecs LZP3, LZJB, LZJB-R, PPM, DMC and Simple, the
+adaptive Huffman coder, the MTF-list, order-1 and deflate-distance
+models and the dummy coder.  The sequential scans among them call the
+native runtime (``native``) and keep a numpy or Python twin for the
+tests (a codec's ``native_body=False``).  They are copied rather than
 imported so that this package never loads the JAX package.
 """

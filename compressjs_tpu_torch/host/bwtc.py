@@ -19,7 +19,9 @@ is coded by the native runtime (``native.bwtc_encode_block`` /
 ``bwtc_decode_block``) on the same coder state, where the output stream
 takes whole arrays (``write_array``) and the input is an
 `ArrayInputStream`; `_encode_block_plain` / `_decode_block_plain` are
-the Python twins that run on any other stream.
+the Python twins that run on any other stream, and wherever the caller
+passes ``native_body=False`` (a keyword of ``compress_file`` and
+``decompress_file``).
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ def _decode_usage_tree(decoder):
     return tree[256:512] != 0
 
 
-def _compress_guts(in_stream, out_stream, file_size, props, final_byte):
+def _compress_guts(in_stream, out_stream, file_size, props, final_byte,
+                   native_body=True):
     encoder = RangeCoder(out_stream)
     encoder.encode_start(final_byte, 1)
     level = 9
@@ -147,7 +150,7 @@ def _compress_guts(in_stream, out_stream, file_size, props, final_byte):
                 len_model.encode(length)
             len_model.encode(pidx)
             _encode_usage_tree(encoder, used)
-            if hasattr(out_stream, 'write_array'):
+            if native_body and hasattr(out_stream, 'write_array'):
                 st = encoder.export_enc_state()
                 out_stream.write_array(native.bwtc_encode_block(
                     mtf_seq, len(alphabet), fast, st))
@@ -211,7 +214,7 @@ def _decode_block_plain(decoder, alphabet_size, fast, length):
     return b
 
 
-def _decompress_guts(in_stream, out_stream, file_size):
+def _decompress_guts(in_stream, out_stream, file_size, native_body=True):
     decoder = RangeCoder(in_stream)
     decoder.decode_start(True)
     level = decoder.decode_byte()
@@ -236,7 +239,7 @@ def _decompress_guts(in_stream, out_stream, file_size):
         pidx = len_model.decode()
         alphabet = np.flatnonzero(_decode_usage_tree(decoder)) \
             .astype(np.uint8)
-        if isinstance(in_stream, ArrayInputStream):
+        if native_body and isinstance(in_stream, ArrayInputStream):
             st = decoder.export_dec_state(in_stream.pos)
             b = native.bwtc_decode_block(in_stream.data, st, len(alphabet),
                                          fast, length)

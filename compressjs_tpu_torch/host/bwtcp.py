@@ -14,7 +14,8 @@ blocks' streams.
 
 The block body is coded by the native runtime (``native.
 bwtc_encode_block`` / ``bwtc_decode_block``) on the block coder's
-state; ``native_body=False`` takes the Python twins of ``host.bwtc``.
+state; ``native_body=False`` (also a keyword of ``compress_file`` and
+``decompress_file``) takes the Python twins of ``host.bwtc``.
 `_PRE_BWT` lets a caller supply the blocks' transforms for one call
 (``parallel.mesh.mesh_compress_bwtcp``), and the card's entry point
 (``parallel.pipeline.bwtcp_compress_device``) builds the same block
@@ -160,17 +161,20 @@ def write_container_body(out_stream, level, payloads):
             out_stream.write(p, 0, len(p))
 
 
-def _compress_guts(in_stream, out_stream, file_size, props, final_byte):
+def _compress_guts(in_stream, out_stream, file_size, props, final_byte,
+                   native_body=True):
     level = _level_of(props)
     blocks = split_blocks(_read_all(in_stream, file_size), level * 100000)
     pre_map = _PRE_BWT.get() or {}
     if len(blocks) > 1:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 2)) as ex:
             payloads = list(ex.map(
-                lambda i: _encode_block(blocks[i], level, pre_map.get(i)),
+                lambda i: _encode_block(blocks[i], level, pre_map.get(i),
+                                        native_body),
                 range(len(blocks))))
     else:
-        payloads = [_encode_block(b, level) for b in blocks]
+        payloads = [_encode_block(b, level, native_body=native_body)
+                    for b in blocks]
     write_container_body(out_stream, level, payloads)
 
 
@@ -187,13 +191,14 @@ def read_container_body(in_stream):
     return level, payloads
 
 
-def _decompress_guts(in_stream, out_stream, file_size):
+def _decompress_guts(in_stream, out_stream, file_size, native_body=True):
     level, payloads = read_container_body(in_stream)
     if len(payloads) > 1:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 2)) as ex:
-            outs = list(ex.map(lambda p: _decode_block(p, level), payloads))
+            outs = list(ex.map(
+                lambda p: _decode_block(p, level, native_body), payloads))
     else:
-        outs = [_decode_block(p, level) for p in payloads]
+        outs = [_decode_block(p, level, native_body) for p in payloads]
     for o in outs:
         out_stream.write(o, 0, len(o))
 

@@ -106,33 +106,36 @@ def decode_symbols_plain(r, sym_to_byte, selectors, groups, dbuf_size):
     return dbuf[:dbuf_count]
 
 
-def _read_block_header(r, dbuf_size):
+def _read_block_header(r, dbuf_size, native_body=True):
     """Parse and symbol-decode the block at r.pos (its magic): (BWT
     column, origPtr, block CRC), or None at the end-of-stream magic, with
-    r.pos after the block's EOB code."""
+    r.pos after the block's EOB code.  ``native_body=False`` parses in
+    Python and decodes with `decode_symbols_plain`."""
     h = r.read_bits(48)
     if h == SQRTPI:
         return None
     if h != WHOLEPI:
         raise ValueError('not bzip2 data: bad block magic')
     target_crc = r.read_bits(32)
-    res = native.bz2_block_full(r.data, r.pos, dbuf_size)
-    if res is not None:
-        dbuf, orig_pointer, r.pos = res
-        return dbuf, orig_pointer, target_crc
+    if native_body:
+        res = native.bz2_block_full(r.data, r.pos, dbuf_size)
+        if res is not None:
+            dbuf, orig_pointer, r.pos = res
+            return dbuf, orig_pointer, target_crc
     orig_pointer, sym_to_byte, selectors, groups = _parse_block_header(
         r, dbuf_size)
-    dbuf = decode_symbols(r, sym_to_byte, selectors, groups, dbuf_size)
+    symbols = decode_symbols if native_body else decode_symbols_plain
+    dbuf = symbols(r, sym_to_byte, selectors, groups, dbuf_size)
     if orig_pointer >= dbuf.shape[0]:
         raise ValueError('Data error: origPtr past the block')
     return dbuf, orig_pointer, target_crc
 
 
-def _decode_one_block(r, dbuf_size):
+def _decode_one_block(r, dbuf_size, native_body=True):
     """Decode the block at r.pos to its bytes: (bytes uint8, block CRC),
     or None at the end-of-stream magic.  Raises ValueError on a bad
     block CRC."""
-    res = _read_block_header(r, dbuf_size)
+    res = _read_block_header(r, dbuf_size, native_body)
     if res is None:
         return None
     dbuf, orig_pointer, target_crc = res

@@ -51,6 +51,12 @@ class _BitReader:
     def tell_bit(self):
         return self.pos
 
+    def eof(self):
+        return self.pos >= int(self.data.shape[0]) * 8
+
+    def align_byte(self):
+        self.pos = (self.pos + 7) & ~7
+
 
 def _start(r):
     """Parse the 'BZh#' stream header; returns the block buffer size."""

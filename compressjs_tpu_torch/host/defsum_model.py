@@ -1,5 +1,5 @@
 """Deferred-summation order-0 model (Charles Bloom) for dense alphabets,
-a copy of the model class of ``compressjs_tpu.models.defsum_model``.
+a copy of ``compressjs_tpu.models.defsum_model``.
 
 A fixed total of 256; updates accumulate and are folded into the
 cumulative tables only when their count reaches the threshold; the
@@ -8,9 +8,20 @@ MAX_ESCAPE_COUNT cap; the decoder keeps O(1) prob -> symbol tables,
 rebuilt at every fold.  The BWTC codec codes its block bodies with it at
 levels 5 and below (natively in ``cz_bwtc_encode_block``; this class is
 that loop's twin).
-"""
+
+The stand-alone order-0 codec (``compress_file``, ``decompress_file``)
+codes its body in the native runtime (``native.order0_encode('defsum')``
+/ ``order0_decode('defsum')``) where the input is an `ArrayInputStream`
+of known size (and, to encode, the output takes whole arrays);
+``native_body=False`` takes the Python model, which any other stream
+takes too."""
 
 from __future__ import annotations
+
+from .. import native
+from .range_coder import RangeCoder
+from .stream import ArrayInputStream
+from . import util
 
 LOG_PROB_TOTAL = 8
 PROB_TOTAL = 1 << LOG_PROB_TOTAL
@@ -33,6 +44,12 @@ class DefSumModel:
         if is_decoder:
             self.prob_to_sym = [size] * PROB_TOTAL
             self.esc_prob_to_sym = list(range(size))
+
+    @staticmethod
+    def factory(coder, is_decoder=False):
+        def make(size):
+            return DefSumModel(coder, size, is_decoder)
+        return make
 
     def _update(self, symbol, is_decoder=False):
         if symbol == self.num_syms:
@@ -117,3 +134,47 @@ class DefSumModel:
         self.coder.decode_update(sy_f, lt_f, tot_f)
         self._update(symbol, True)
         return symbol
+
+
+MAGIC = 'dfsm'
+
+
+def _compress_guts(in_stream, out_stream, file_size, props, final_byte,
+                   native_body=True):
+    coder = RangeCoder(out_stream)
+    coder.encode_start(final_byte, 1)
+    if (native_body and file_size >= 0
+            and isinstance(in_stream, ArrayInputStream)
+            and hasattr(out_stream, 'write_array')):
+        data = in_stream.read_array(file_size)
+        st = coder.export_enc_state()
+        out_stream.write_array(native.order0_encode('defsum', data, 256,
+                                                    -1, st))
+        coder.import_enc_state(st)
+    else:
+        model = DefSumModel(coder, 257 if file_size < 0 else 256)
+        util.compress_with_model(in_stream, file_size, model)
+    coder.encode_finish()
+
+
+def _decompress_guts(in_stream, out_stream, file_size, native_body=True):
+    coder = RangeCoder(in_stream)
+    coder.decode_start(True)
+    if (native_body and file_size >= 0
+            and isinstance(in_stream, ArrayInputStream)):
+        st = coder.export_dec_state(in_stream.pos)
+        out = native.order0_decode('defsum', in_stream.data, st, 256,
+                                   file_size)
+        in_stream.pos = coder.import_dec_state(st)
+        out_stream.write(out, 0, file_size)
+    else:
+        model = DefSumModel(coder, 257 if file_size < 0 else 256, True)
+        util.decompress_with_model(out_stream, file_size, model)
+    coder.decode_finish()
+
+
+compress_file = util.compress_file_helper(MAGIC, _compress_guts, True)
+decompress_file = util.decompress_file_helper(MAGIC, _decompress_guts)
+DefSumModel.MAGIC = MAGIC
+DefSumModel.compress_file = staticmethod(compress_file)
+DefSumModel.decompress_file = staticmethod(decompress_file)

@@ -1,6 +1,6 @@
-"""Adaptive order-0 model with escape over an implicit complete binary
-tree in heap layout (leaves at [num_syms, 2 num_syms)), a copy of the
-model class of ``compressjs_tpu.models.fenwick_model``.
+"""Adaptive order-0 model with escape over an implicit complete binary tree
+in heap layout (leaves at [num_syms, 2 num_syms)), a copy of
+``compressjs_tpu.models.fenwick_model``.
 
 Each uint32 node packs the escape probability (low 16 bits) and the
 symbol probability (high 16 bits); unseen symbols carry esc = 1; encode
@@ -9,9 +9,20 @@ update; decode walks root -> leaf; a rescale halves the leaves,
 re-escaping zeros.  The BWTC codec codes its block bodies with it above
 level 5 (natively in ``cz_bwtc_encode_block``; this class is that
 loop's twin).
-"""
+
+The stand-alone order-0 codec (``compress_file``, ``decompress_file``)
+codes its body in the native runtime (``native.order0_fenwick_encode`` /
+``order0_fenwick_decode``) where the input is an `ArrayInputStream` of
+known size (and, to encode, the output takes whole arrays);
+``native_body=False`` takes the Python model, which any other stream
+takes too."""
 
 from __future__ import annotations
+
+from .. import native
+from .range_coder import RangeCoder
+from .stream import ArrayInputStream
+from . import util
 
 DEFAULT_MAX_PROB = 0xFF00
 DEFAULT_INCREMENT = 0x0100
@@ -36,6 +47,18 @@ class FenwickModel:
             self.tree[self.num_syms + i] = (1 << ESC_SHIFT)  # esc=1, sym=0
         self.tree[self.num_syms + size] = (self.increment << SYM_SHIFT)
         self._sum_tree()
+
+    @staticmethod
+    def factory(coder, max_prob=None, increment=None):
+        def make(size):
+            return FenwickModel(coder, size, max_prob, increment)
+        return make
+
+    def clone(self):
+        m = FenwickModel(self.coder, self.num_syms - 1,
+                         self.max_prob, self.increment)
+        m.tree[1:] = self.tree[1:]
+        return m
 
     def encode(self, symbol):
         tree = self.tree
@@ -134,3 +157,47 @@ class FenwickModel:
         tree = self.tree
         for i in range(self.num_syms - 1, 0, -1):
             tree[i] = (tree[2 * i] + tree[2 * i + 1]) & U32
+
+
+MAGIC = 'fenw'
+
+
+def _compress_guts(in_stream, out_stream, file_size, props, final_byte,
+                   native_body=True):
+    coder = RangeCoder(out_stream)
+    coder.encode_start(final_byte, 1)
+    if (native_body and file_size >= 0
+            and isinstance(in_stream, ArrayInputStream)
+            and hasattr(out_stream, 'write_array')):
+        data = in_stream.read_array(file_size)
+        st = coder.export_enc_state()
+        payload = native.order0_fenwick_encode(data, 256, -1, st)
+        out_stream.write_array(payload)
+        coder.import_enc_state(st)
+    else:
+        model = FenwickModel(coder, 257 if file_size < 0 else 256)
+        util.compress_with_model(in_stream, file_size, model)
+    coder.encode_finish()
+
+
+def _decompress_guts(in_stream, out_stream, file_size, native_body=True):
+    coder = RangeCoder(in_stream)
+    coder.decode_start(True)
+    if (native_body and file_size >= 0
+            and isinstance(in_stream, ArrayInputStream)):
+        st = coder.export_dec_state(in_stream.pos)
+        out = native.order0_fenwick_decode(in_stream.data, st, 256,
+                                           file_size)
+        in_stream.pos = coder.import_dec_state(st)
+        out_stream.write(out, 0, file_size)
+    else:
+        model = FenwickModel(coder, 257 if file_size < 0 else 256)
+        util.decompress_with_model(out_stream, file_size, model)
+    coder.decode_finish()
+
+
+compress_file = util.compress_file_helper(MAGIC, _compress_guts, True)
+decompress_file = util.decompress_file_helper(MAGIC, _decompress_guts)
+FenwickModel.MAGIC = MAGIC
+FenwickModel.compress_file = staticmethod(compress_file)
+FenwickModel.decompress_file = staticmethod(decompress_file)

@@ -165,6 +165,39 @@ def _bind(lib):
     lib.cz_order0_fenwick_decode.argtypes = [_p_u8, _i64, _p_i64, _i32,
                                              _p_u8, _i64]
     lib.cz_order0_fenwick_decode.restype = _i64
+    for name in ('cz_huff_encode', 'cz_ctx1_encode'):
+        getattr(lib, name).argtypes = [_p_u8, _i64, _p_u8]
+        getattr(lib, name).restype = _i64
+    for name in ('cz_huff_decode', 'cz_ctx1_decode', 'cz_lzjb_decode'):
+        getattr(lib, name).argtypes = [_p_u8, _i64, _p_u8, _i64]
+        getattr(lib, name).restype = _i64
+    lib.cz_simple_encode.argtypes = [_p_u8, _i64, _p_i64, _p_u8]
+    lib.cz_simple_encode.restype = _i64
+    for name in ('cz_simple_decode', 'cz_lzp3_decode', 'cz_lzjbr_decode'):
+        getattr(lib, name).argtypes = [_p_u8, _i64, _p_i64, _p_u8, _i64]
+        getattr(lib, name).restype = _i64
+    for name in ('cz_order0_mtf_encode', 'cz_order0_defsum_encode',
+                 'cz_ppm_encode'):
+        getattr(lib, name).argtypes = [_p_u8, _i64, _i32, _i32, _p_i64,
+                                       _p_u8]
+        getattr(lib, name).restype = _i64
+    for name in ('cz_order0_mtf_decode', 'cz_order0_defsum_decode',
+                 'cz_ppm_decode'):
+        getattr(lib, name).argtypes = [_p_u8, _i64, _p_i64, _i32, _p_u8,
+                                       _i64]
+        getattr(lib, name).restype = _i64
+    lib.cz_dmc_encode.argtypes = [_p_u8, _i64, _i32, _i32, _i64, _i64,
+                                  _p_i64, _p_u8]
+    lib.cz_dmc_encode.restype = _i64
+    lib.cz_dmc_decode.argtypes = [_p_u8, _i64, _p_i64, _i32, _i64, _i64,
+                                  _p_u8, _i64]
+    lib.cz_dmc_decode.restype = _i64
+    lib.cz_lzp3_encode.argtypes = [_p_u8, _i64, _p_i64, _p_u8]
+    lib.cz_lzp3_encode.restype = _i64
+    lib.cz_lzjb_encode.argtypes = [_p_u8, _i64, _i32, _i32, _p_u8]
+    lib.cz_lzjb_encode.restype = _i64
+    lib.cz_lzjbr_encode.argtypes = [_p_u8, _i64, _i32, _i32, _p_i64, _p_u8]
+    lib.cz_lzjbr_encode.restype = _i64
     return lib
 
 
@@ -507,3 +540,252 @@ def order0_fenwick_decode(data, dec_state, size, n):
     lib().cz_order0_fenwick_decode(data, data.shape[0], dec_state, size,
                                    out, n)
     return out
+
+
+# --- the host codecs' bodies ---------------------------------------------
+# Each coder entry continues a range coder whose state the caller's
+# ``host.range_coder.RangeCoder`` exported: an encoder's int64[5] (low,
+# range, buffer, help, byte count), a decoder's int64[5] (low, range,
+# buffer, the read position, unused); the call updates it in place.  The
+# output buffers are sized as the JAX package's bindings size them: a
+# symbol costs at most two coder steps (escape and literal) of at most 16
+# bits each, an LZJB item at most 17/16 of its bytes, a Huffman code with
+# its escaped id less than 2 bytes.
+
+
+def _state(st, name):
+    """The coder state array, checked: int64, C-contiguous, 5 entries."""
+    if not (isinstance(st, np.ndarray) and st.dtype == np.int64
+            and st.shape == (5,) and st.flags['C_CONTIGUOUS']
+            and st.flags['WRITEABLE']):
+        raise ValueError('%s: the coder state must be a writeable '
+                         'contiguous int64 array of 5 entries' % name)
+    return st
+
+
+def _check_model(size, eof_sym, data, name):
+    """An order-0 model of `size` symbols codes the bytes of data and
+    eof_sym (where >= 0): each below size, size at most 257."""
+    if not 1 <= size <= 257 or eof_sym >= size or (
+            data.shape[0] and int(data.max()) >= size):
+        raise ValueError('%s: a symbol outside the model\'s %d'
+                         % (name, size))
+
+
+def _check_count(n, name):
+    if n < 0:
+        raise ValueError('%s: %d symbols to decode' % (name, n))
+
+
+def huff_encode(data):
+    """The adaptive (Vitter) Huffman 'huff' body of `data`: alphabet 256,
+    table capacity 257, max weight 8191; the bytes, bit-flushed."""
+    data = _u8(data)
+    out = np.empty(data.shape[0] * 2 + 4096, dtype=np.uint8)
+    n = lib().cz_huff_encode(data, data.shape[0], out)
+    return out[:n]
+
+
+def huff_decode(data, n):
+    """`n` bytes of a `huff_encode` body (zero bits past its end)."""
+    data = _u8(data)
+    _check_count(n, 'huff_decode')
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_huff_decode(data, data.shape[0], out, n)
+    return out
+
+
+def ctx1_encode(data):
+    """The order-1 adaptive Huffman 'ctx1' body: one coder per previous
+    byte (0x20 before the first)."""
+    data = _u8(data)
+    out = np.empty(data.shape[0] * 2 + 4096, dtype=np.uint8)
+    n = lib().cz_ctx1_encode(data, data.shape[0], out)
+    return out[:n]
+
+
+def ctx1_decode(data, n):
+    """`n` bytes of a `ctx1_encode` body."""
+    data = _u8(data)
+    _check_count(n, 'ctx1_decode')
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_ctx1_decode(data, data.shape[0], out, n)
+    return out
+
+
+def simple_encode(data, enc_state):
+    """The Simple codec's body on the coder: 128 KiB blocks, each a
+    continuation bit, 256 raw 16-bit counts and its symbols against the
+    static table (a block ends early where a count reaches 0xFFFF), then
+    a stop bit."""
+    data = _u8(data)
+    st = _state(enc_state, 'simple_encode')
+    # per block: 257 16-bit steps; at least 0xFFFF / 256 bytes a block
+    out = np.empty(data.shape[0] * 2 + data.shape[0] // 1000 * 520 + 8192,
+                   dtype=np.uint8)
+    n = lib().cz_simple_encode(data, data.shape[0], st, out)
+    return out[:n]
+
+
+def simple_decode(data, dec_state, cap):
+    """The bytes of a Simple body (at most `cap`; ValueError past it)."""
+    data = _u8(data)
+    st = _state(dec_state, 'simple_decode')
+    _check_count(cap, 'simple_decode')
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib().cz_simple_decode(data, data.shape[0], st, out, cap)
+    if n < 0:
+        raise ValueError('simple decode overrun')
+    return out[:n]
+
+
+def order0_encode(kind, data, size, eof_sym, enc_state):
+    """Code the bytes of data, then eof_sym where >= 0, through one
+    fresh order-0 model of `size` symbols: kind 'mtf' (the MTF-list
+    model, max_prob 0xFF00, increment 0x100) or 'defsum'."""
+    if kind not in ('mtf', 'defsum'):
+        raise ValueError('order0_encode: no model %r' % (kind,))
+    data = _u8(data)
+    st = _state(enc_state, 'order0_encode')
+    _check_model(size, eof_sym, data, 'order0_encode')
+    out = np.empty(data.shape[0] * 3 + 65536, dtype=np.uint8)
+    fn = getattr(lib(), 'cz_order0_%s_encode' % kind)
+    n = fn(data, data.shape[0], size, eof_sym, st, out)
+    return out[:n]
+
+
+def order0_decode(kind, data, dec_state, size, n):
+    """`n` symbols (uint8) of an `order0_encode` stream."""
+    if kind not in ('mtf', 'defsum'):
+        raise ValueError('order0_decode: no model %r' % (kind,))
+    data = _u8(data)
+    st = _state(dec_state, 'order0_decode')
+    if not 1 <= size <= 256:
+        raise ValueError('order0_decode: a model of %d symbols' % size)
+    _check_count(n, 'order0_decode')
+    out = np.empty(n, dtype=np.uint8)
+    fn = getattr(lib(), 'cz_order0_%s_decode' % kind)
+    fn(data, data.shape[0], st, size, out, n)
+    return out
+
+
+def dmc_encode(data, size, eof_sym, min1, min2, enc_state):
+    """The DMC body: the bytes (then eof_sym where >= 0) through the
+    Markov model of `size` states, split thresholds min1 / min2."""
+    data = _u8(data)
+    st = _state(enc_state, 'dmc_encode')
+    _check_model(size, eof_sym, data, 'dmc_encode')
+    out = np.empty(data.shape[0] * 3 + 65536, dtype=np.uint8)
+    n = lib().cz_dmc_encode(data, data.shape[0], size, eof_sym, min1, min2,
+                            st, out)
+    return out[:n]
+
+
+def dmc_decode(data, dec_state, size, min1, min2, n):
+    """`n` bytes of a DMC body."""
+    data = _u8(data)
+    st = _state(dec_state, 'dmc_decode')
+    if not 1 <= size <= 256:
+        raise ValueError('dmc_decode: a model of %d symbols' % size)
+    _check_count(n, 'dmc_decode')
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_dmc_decode(data, data.shape[0], st, size, min1, min2, out, n)
+    return out
+
+
+def ppm_encode(data, size, eof_sym, enc_state):
+    """The PPM body: the bytes (then eof_sym where >= 0) through the
+    order-5 context model of `size` symbols."""
+    data = _u8(data)
+    st = _state(enc_state, 'ppm_encode')
+    _check_model(size, eof_sym, data, 'ppm_encode')
+    out = np.empty(data.shape[0] * 3 + 65536, dtype=np.uint8)
+    n = lib().cz_ppm_encode(data, data.shape[0], size, eof_sym, st, out)
+    return out[:n]
+
+
+def ppm_decode(data, dec_state, size, n):
+    """`n` bytes of a PPM body."""
+    data = _u8(data)
+    st = _state(dec_state, 'ppm_decode')
+    if not 1 <= size <= 256:
+        raise ValueError('ppm_decode: a model of %d symbols' % size)
+    _check_count(n, 'ppm_decode')
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_ppm_decode(data, data.shape[0], st, size, out, n)
+    return out
+
+
+def lzp3_encode(data, enc_state):
+    """The LZP3 body (after its 0x00 coder-mode byte) of `data`, whose
+    size the container carries."""
+    data = _u8(data)
+    st = _state(enc_state, 'lzp3_encode')
+    out = np.empty(data.shape[0] * 2 + 65536, dtype=np.uint8)
+    n = lib().cz_lzp3_encode(data, data.shape[0], st, out)
+    return out[:n]
+
+
+def lzp3_decode(data, dec_state, n):
+    """`n` bytes of an LZP3 body (a match past them is cut)."""
+    data = _u8(data)
+    st = _state(dec_state, 'lzp3_decode')
+    _check_count(n, 'lzp3_decode')
+    out = np.empty(n, dtype=np.uint8)
+    lib().cz_lzp3_decode(data, data.shape[0], st, out, n)
+    return out
+
+
+def _check_lempel(lempel_size, expand, name):
+    if not (lempel_size >= 1 and lempel_size & (lempel_size - 1) == 0
+            and 1 <= expand <= 64):
+        raise ValueError('%s: hash table of %d buckets x %d'
+                         % (name, lempel_size, expand))
+
+
+def lzjb_encode(data, lempel_size, expand):
+    """The LZJB body: copymap bytes, literals and 2-byte matches, with
+    `expand` candidates in each of `lempel_size` hash buckets."""
+    data = _u8(data)
+    _check_lempel(lempel_size, expand, 'lzjb_encode')
+    out = np.empty(data.shape[0] * 2 + 1024, dtype=np.uint8)
+    n = lib().cz_lzjb_encode(data, data.shape[0], lempel_size, expand, out)
+    return out[:n]
+
+
+def lzjb_decode(data, out_size):
+    """At most `out_size` bytes of an LZJB body."""
+    data = _u8(data)
+    _check_count(out_size, 'lzjb_decode')
+    out = np.empty(out_size, dtype=np.uint8)
+    n = lib().cz_lzjb_decode(data, data.shape[0], out, out_size)
+    return out[:n]
+
+
+# the longest LZJB match (6 length bits + 3): a corrupt LZJB-R stream can
+# code a match that passes the output's end by up to this many bytes less
+# one, which the decode writes before it looks at the count again
+_LZJB_MATCH_MAX = 66
+
+
+def lzjbr_encode(data, lempel_size, expand, enc_state):
+    """The LZJB-R body: LZJB's parse, range-coded (literal / MATCH
+    through an order-1 Fenwick context, lengths and offsets through
+    log-distance models)."""
+    data = _u8(data)
+    _check_lempel(lempel_size, expand, 'lzjbr_encode')
+    st = _state(enc_state, 'lzjbr_encode')
+    out = np.empty(data.shape[0] * 2 + 65536, dtype=np.uint8)
+    n = lib().cz_lzjbr_encode(data, data.shape[0], lempel_size, expand, st,
+                              out)
+    return out[:n]
+
+
+def lzjbr_decode(data, dec_state, out_size):
+    """`out_size` bytes of an LZJB-R body."""
+    data = _u8(data)
+    st = _state(dec_state, 'lzjbr_decode')
+    _check_count(out_size, 'lzjbr_decode')
+    out = np.empty(out_size + _LZJB_MATCH_MAX, dtype=np.uint8)
+    lib().cz_lzjbr_decode(data, data.shape[0], st, out, out_size)
+    return out[:out_size]

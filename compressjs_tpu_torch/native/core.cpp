@@ -1,21 +1,26 @@
 // Native host runtime of compressjs_tpu_torch: the sequential host stages
 // of the bzip2 encode that the `core` and `hybrid` splits run beside the
 // card, the host cyclic BWT that `self_check` holds the card against, the
-// host block decode of the parallel and mesh decoders, and the BWTC
-// codec's host stages (the EOF-terminated BWT and its inverse, MTF, and
-// the range-coded block body).
+// host block decode of the parallel and mesh decoders, the BWTC codec's
+// host stages (the EOF-terminated BWT and its inverse, MTF, and the
+// range-coded block body), and the bodies of the host codecs (LZP3, LZJB,
+// LZJB-R, PPM, DMC, Simple) and of the models' self-test codecs.
 //
 // Copied from the JAX package's native runtime, with only what this
 // package calls: the SA-IS and two-stage suffix sorters, the
 // length-limited Huffman allocator, the range coder with its Fenwick and
-// deferred-summation models, and the exports cz_huff_code_lengths,
-// cz_selector_mtf, cz_bwt_cyclic, cz_mtf_rle2, cz_group_costs,
-// cz_chunk_freqs, cz_payload_pack, cz_rle1_encode, cz_bz2_decode_block,
-// cz_bz2_block_full, cz_inverse_bwt, cz_rle1_decode, cz_bwt_eof,
-// cz_inverse_bwt_eof, cz_mtf_encode, cz_mtf_decode, cz_bwtc_encode_block,
-// cz_bwtc_decode_block, cz_order0_fenwick_encode and
-// cz_order0_fenwick_decode.  Built by g++ at first use and loaded with
-// ctypes (native/__init__.py).
+// deferred-summation models and the composite models over it (NoModelRC,
+// LogDistModel), the adaptive Vitter Huffman coder (vhuff), DMC's Markov
+// model and MTF-list model (dmc), PPM's context models (ppm) and LZP3's
+// window (lzp3), and the exports cz_huff_code_lengths, cz_selector_mtf,
+// cz_bwt_cyclic, cz_mtf_rle2, cz_group_costs, cz_chunk_freqs,
+// cz_payload_pack, cz_rle1_encode, cz_bz2_decode_block, cz_bz2_block_full,
+// cz_inverse_bwt, cz_rle1_decode, cz_bwt_eof, cz_inverse_bwt_eof,
+// cz_mtf_encode, cz_mtf_decode, cz_huff_encode/_decode, cz_ctx1_*,
+// cz_simple_*, cz_order0_mtf_*, cz_order0_defsum_*, cz_dmc_*, cz_ppm_*,
+// cz_lzp3_*, cz_lzjb_*, cz_lzjbr_*, cz_bwtc_encode_block,
+// cz_bwtc_decode_block and cz_order0_fenwick_*.  Built by g++ at first
+// use and loaded with ctypes (native/__init__.py).
 
 #include <cstdint>
 #include <cstring>
@@ -1743,9 +1748,1641 @@ struct DefSum {
   }
 };
 
+// --- composite models over the range coder -------------------------------
+
+// fixed-width bit coding through the coder's bit interface (NoModel)
+struct NoModelRC {
+  int bits;
+  explicit NoModelRC(int32_t size) {
+    bits = 0;
+    int64_t v = (int64_t)size - 1;
+    while (v > 0) { bits++; v >>= 1; }
+  }
+  void encode(Enc& e, int32_t symbol) {
+    for (int i = bits - 1; i >= 0; i--)
+      e.encode_shift(1, (symbol >> i) & 1, 1);
+  }
+  int32_t decode(Dec& d) {
+    int32_t r = 0;
+    for (int i = bits - 1; i >= 0; i--) {
+      uint32_t t = d.decode_cul_shift(1);
+      d.update(1, t, 2);
+      r = (r << 1) | (int32_t)t;
+    }
+    return r;
+  }
+};
+
+// log-distance model: fls through one Fenwick (+extra states), low bits
+// through per-length Fenwick or NoModel above `cutoff`
+struct LogDistModel {
+  int extra;
+  Fenwick lg;
+  std::vector<Fenwick> dist;     // index i-2 for i in [2, bits]
+  std::vector<NoModelRC> nodist;
+  std::vector<int> use_no;       // per i: 1 if NoModel
+  int bits;
+
+  static int fls_i(int64_t v) {
+    int r = 0;
+    while (v > 0) { r++; v >>= 1; }
+    return r;
+  }
+
+  LogDistModel(int64_t size, int extra_states, int32_t cutoff,
+               uint32_t maxp, uint32_t incr)
+      : extra(extra_states),
+        lg((int32_t)(fls_i(size - 1) + extra_states + 1), maxp, incr),
+        bits(fls_i(size - 1)) {
+    // NOTE: Fenwick(size) models alphabet `size` with its own escape; the
+    // framework's factories are called with the alphabet size directly,
+    // so lg gets (1 + bits + extra) and dist[i] gets (1 << (i-1)).
+    for (int i = 2; i <= bits; i++) {
+      int64_t sz = 1LL << (i - 1);
+      use_no.push_back(sz > cutoff);
+      if (sz > cutoff) {
+        nodist.emplace_back((int32_t)sz);
+        dist.emplace_back(1, maxp, incr);  // placeholder
+      } else {
+        nodist.emplace_back(1);
+        dist.emplace_back((int32_t)sz, maxp, incr);
+      }
+    }
+  }
+  void encode(Enc& e, int64_t v) {
+    if (v < 2) { lg.encode(e, (int32_t)(v + extra)); return; }
+    int l = fls_i(v);
+    lg.encode(e, l + extra);
+    int64_t rest = v & ((1LL << (l - 1)) - 1);
+    if (use_no[l - 2]) nodist[l - 2].encode(e, (int32_t)rest);
+    else dist[l - 2].encode(e, (int32_t)rest);
+  }
+  int64_t decode(Dec& d) {
+    int l = lg.decode(d) - extra;
+    if (l < 2) return l;
+    int64_t rest = use_no[l - 2] ? nodist[l - 2].decode(d)
+                                 : dist[l - 2].decode(d);
+    return (1LL << (l - 1)) + rest;
+  }
+};
+
 }  // namespace rc
 
+// --- adaptive (Vitter) Huffman over a bit stream -------------------------
+// Mirrors host/huffman.py (itself the behavior clone of Huffman.js).
+
+namespace vhuff {
+
+struct BitWriter {
+  uint8_t* out;
+  int64_t o = 0;
+  uint64_t acc = 0;
+  int accbits = 0;
+  void put(int b) {
+    acc = (acc << 1) | (uint64_t)(b & 1);
+    accbits++;
+    if (accbits == 8) {
+      out[o++] = (uint8_t)acc;
+      acc = 0;
+      accbits = 0;
+    }
+  }
+  void flush() {
+    while (accbits) put(0);
+  }
+};
+
+struct BitReader {
+  const uint8_t* in;
+  int64_t len;
+  int64_t bitpos = 0;
+  int get() {
+    if (bitpos >= len * 8) { bitpos++; return 0; }  // zeros past EOF
+    int b = (in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1;
+    bitpos++;
+    return b;
+  }
+};
+
+template <typename BitIO>
+struct Coder {
+  std::vector<int32_t> up, down, symbol, weight, map;
+  int32_t size, esc, root;
+  int32_t max_weight;
+  BitIO* io;
+
+  Coder(int32_t sz, int32_t rt, BitIO* bio, int32_t maxw)
+      : size(sz), max_weight(maxw), io(bio) {
+    if (!rt || rt > sz) rt = sz;
+    rt = rt * 2 - 1;
+    up.assign(rt + 1, 0);
+    down.assign(rt + 1, 0);
+    symbol.assign(rt + 1, 0);
+    weight.assign(rt + 1, 0);
+    map.assign(sz, 0);
+    esc = root = rt;
+  }
+  int32_t split(int32_t sym) {
+    int32_t pair = esc;
+    esc--;
+    int32_t node;
+    if (esc) {
+      node = esc;
+      down[pair] = node;
+      weight[pair] = 1;
+      up[node] = pair;
+      esc--;
+    } else {
+      pair = 0;
+      node = 1;
+    }
+    symbol[node] = sym;
+    weight[node] = 0;
+    down[node] = 0;
+    map[sym] = node;
+    weight[esc] = 0;
+    down[esc] = 0;
+    up[esc] = pair;
+    return node;
+  }
+  int32_t leader(int32_t node) {
+    int32_t w = weight[node];
+    int32_t lead = node;
+    while (w == weight[lead + 1]) lead++;
+    if (lead == node) return node;
+    int32_t s = symbol[node], prev = symbol[lead];
+    symbol[lead] = s;
+    symbol[node] = prev;
+    map[s] = lead;
+    map[prev] = node;
+    return lead;
+  }
+  int32_t slide(int32_t node) {
+    int32_t nxt = node + 1;
+    int32_t s_up = up[node], s_down = down[node];
+    int32_t s_sym = symbol[node], s_w = weight[node];
+    if (s_w & 1) {
+      while (s_w > weight[nxt + 1]) nxt++;
+    }
+    up[node] = up[nxt];
+    down[node] = down[nxt];
+    symbol[node] = symbol[nxt];
+    weight[node] = weight[nxt];
+    down[nxt] = s_down;
+    symbol[nxt] = s_sym;
+    weight[nxt] = s_w;
+    up[nxt] = up[node];
+    up[node] = s_up;
+    if (s_w & 1) {
+      up[s_down] = nxt;
+      up[s_down - 1] = nxt;
+      map[symbol[node]] = node;
+    } else {
+      int32_t d = down[node];
+      up[d - 1] = node;
+      up[d] = node;
+      map[s_sym] = nxt;
+    }
+    return nxt;
+  }
+  void increment(int32_t node) {
+    if (up[node] == node + 1) {
+      weight[node] += 2;
+      node++;
+    } else {
+      node = leader(node);
+    }
+    for (;;) {
+      weight[node] += 2;
+      int32_t u = up[node];
+      if (!u) break;
+      while (weight[node] > weight[node + 1]) node = slide(node);
+      if (weight[node] & 1) node = u;
+      else node = up[node];
+    }
+    if (max_weight && weight[root] >= max_weight) scale(1);
+  }
+  void scale(int bits) {
+    int32_t node = esc;
+    for (;;) {
+      node++;
+      if (node > root) break;
+      int32_t w;
+      if (weight[node] & 1) {
+        w = weight[down[node]] & ~1;
+        if (w) w += weight[down[node] - 1] | 1;
+      } else {
+        w = (weight[node] >> bits) & ~1;
+        if (!w) {
+          map[symbol[node]] = 0;
+          if (esc) esc += 2;
+          else esc += 1;
+        }
+      }
+      weight[node] = w;
+      int32_t prev = node;
+      for (;;) {
+        prev--;
+        if (w < weight[prev]) slide(prev);
+        else break;
+      }
+    }
+    down[esc] = 0;
+  }
+  void sendid(int32_t sym) {
+    int32_t empty = 0;
+    for (int32_t s = 0; s < sym; s++)
+      if (!map[s]) empty++;
+    int32_t mx = size - (root - esc) / 2 - 1;
+    if (mx) {
+      for (;;) {
+        io->put(empty & 1);
+        empty >>= 1;
+        mx >>= 1;
+        if (!mx) break;
+      }
+    }
+  }
+  void encode(int32_t sym) {
+    int32_t node = map[sym];
+    int32_t idx = node;
+    if (!idx) {
+      idx = esc;
+      if (!idx) return;
+    }
+    uint64_t emit = 1;
+    for (;;) {
+      int32_t u = up[idx];
+      if (!u) break;
+      emit = (emit << 1) | (uint64_t)(idx & 1);
+      idx = u;
+    }
+    for (;;) {
+      int bit = (int)(emit & 1);
+      emit >>= 1;
+      if (!emit) break;
+      io->put(bit);
+    }
+    if (!node) {
+      sendid(sym);
+      node = split(sym);
+    }
+    increment(node);
+  }
+  int32_t readid() {
+    int32_t empty = 0, bit = 1;
+    int32_t mx = size - (root - esc) / 2 - 1;
+    if (mx) {
+      for (;;) {
+        if (io->get()) empty |= bit;
+        bit <<= 1;
+        mx >>= 1;
+        if (!mx) break;
+      }
+    }
+    for (int32_t s = 0; s < size; s++) {
+      if (!map[s]) {
+        if (!empty) return s;
+        empty--;
+      }
+    }
+    return 0;
+  }
+  int32_t decode() {
+    int32_t node = root;
+    for (;;) {
+      int32_t d = down[node];
+      if (!d) break;
+      node = io->get() ? d - 1 : d;
+    }
+    int32_t sym;
+    if (node == esc) {
+      sym = readid();
+      node = split(sym);
+    } else {
+      sym = symbol[node];
+    }
+    increment(node);
+    return sym;
+  }
+};
+
+}  // namespace vhuff
+
+// --- DMC -----------------------------------------------------------------
+// Byte-oriented dynamic Markov compression (mirrors host/dmc.py).
+
+namespace dmc {
+
+// MTF-list adaptive model (mirrors host/mtf_model.py, no better_escape)
+struct MTFModel {
+  std::vector<uint16_t> sym, prob;
+  int32_t seen = 1;
+  int32_t num_syms;
+  uint32_t max_prob, increment;
+
+  MTFModel(int32_t size, uint32_t maxp, uint32_t incr)
+      : sym(size + 1, 0), prob(size + 2, 0), num_syms(size),
+        max_prob(maxp), increment(incr) {
+    sym[0] = (uint16_t)size;  // escape
+    prob[1] = (uint16_t)increment;
+  }
+  void update_at(int32_t symbol, int32_t index, int32_t sy_f) {
+    int32_t j = index;
+    int32_t tot_f;
+    while (j < seen - 1) {
+      sym[j] = sym[j + 1];
+      prob[j] = (uint16_t)(prob[j + 1] - sy_f);
+      j++;
+    }
+    if (index < seen) {
+      sym[j] = (uint16_t)symbol;
+      prob[j] = (uint16_t)(prob[j + 1] - sy_f);
+      tot_f = prob[seen] + increment;
+      prob[seen] = (uint16_t)tot_f;
+      if (symbol == num_syms && seen >= num_syms) {
+        seen--;
+        tot_f = prob[seen];
+      }
+    } else {
+      tot_f = prob[seen];
+      sym[index] = (uint16_t)symbol;
+      prob[index] = (uint16_t)tot_f;
+      tot_f += increment;
+      seen++;
+      prob[seen] = (uint16_t)tot_f;
+    }
+    if ((uint32_t)tot_f >= max_prob) rescale();
+  }
+  void rescale() {
+    int32_t total = 0, j = 0;
+    bool no_escape = true;
+    for (int32_t i = 0; i < seen; i++) {
+      int32_t s = sym[i];
+      int32_t f = (prob[i + 1] - prob[i]) >> 1;
+      if (f > 0) {
+        if (s == num_syms) no_escape = false;
+        sym[j] = (uint16_t)s;
+        prob[j] = (uint16_t)total;
+        j++;
+        total += f;
+      }
+    }
+    prob[j] = (uint16_t)total;
+    seen = j;
+    if (no_escape && seen < num_syms)
+      update_at(num_syms, seen, 0);
+  }
+  void encode(rc::Enc& e, int32_t symbol) {
+    for (int32_t i = seen - 1; i >= 0; i--) {
+      if (sym[i] == symbol) {
+        int32_t lt_f = prob[i];
+        int32_t sy_f = prob[i + 1] - lt_f;
+        e.encode_freq(sy_f, lt_f, prob[seen]);
+        update_at(symbol, i, sy_f);
+        return;
+      }
+    }
+    encode(e, num_syms);  // escape
+    e.encode_freq(1, symbol, num_syms);
+    update_at(symbol, seen, 0);
+  }
+  int32_t decode(rc::Dec& d) {
+    int32_t tot_f = prob[seen];
+    int32_t p = (int32_t)d.decode_cul_freq(tot_f);
+    int32_t i = seen - 1;
+    while (i >= 0 && prob[i] > p) i--;
+    int32_t symbol = sym[i];
+    int32_t lt_f = prob[i];
+    int32_t sy_f = prob[i + 1] - lt_f;
+    d.update(sy_f, lt_f, tot_f);
+    update_at(symbol, i, sy_f);
+    if (symbol == num_syms) {
+      symbol = (int32_t)d.decode_cul_freq(num_syms);
+      d.update(1, symbol, num_syms);
+      update_at(symbol, seen, 0);
+    }
+    return symbol;
+  }
+};
+
+struct Node {
+  std::vector<int32_t> out;      // node indices
+  MTFModel model;
+  std::vector<uint16_t> count;
+  int64_t sum = 0;
+  Node(int32_t size) : out(size, 0), model(size, 0xFF00, 0x100),
+                       count(size, 0) {}
+};
+
+struct Markov {
+  std::vector<Node> nodes;
+  int32_t size;
+  int64_t min1, min2;
+  int32_t current = 0;
+
+  Markov(int32_t sz, int64_t m1, int64_t m2)
+      : size(sz), min1(m1), min2(m2) {
+    nodes.reserve(1024);
+    for (int32_t i = 0; i < sz; i++) nodes.emplace_back(sz);
+    for (int32_t i = 0; i < sz; i++)
+      for (int32_t j = 0; j < sz; j++) nodes[i].out[j] = j;
+  }
+  int32_t maybe_split(int32_t from, int32_t symbol, int32_t to) {
+    int64_t trans = nodes[from].count[symbol];
+    int64_t next_cnt = nodes[to].sum;
+    if (trans <= min1 || next_cnt - trans <= min2) return to;
+    int32_t nn = (int32_t)nodes.size();
+    nodes.emplace_back(size);
+    Node& node = nodes[nn];
+    node.out = nodes[to].out;
+    nodes[from].out[symbol] = nn;
+    node.sum = 0;
+    nodes[to].sum = 0;
+    for (int32_t i = 0; i < size; i++) {
+      // truncation matches the reference's float-to-U16 store
+      uint16_t share = (uint16_t)((double)nodes[to].count[i] * trans /
+                                  (double)next_cnt);
+      node.count[i] = share;
+      node.sum += share;
+      nodes[to].count[i] = (uint16_t)(nodes[to].count[i] - share);
+      nodes[to].sum += nodes[to].count[i];
+    }
+    return nn;
+  }
+  void advance(int32_t symbol) {
+    int32_t from = current;
+    int32_t to = nodes[from].out[symbol];
+    if (nodes[from].count[symbol] != 0xFFFF) {
+      nodes[from].count[symbol]++;
+      nodes[from].sum++;
+    }
+    current = maybe_split(from, symbol, to);
+  }
+};
+
+}  // namespace dmc
+
+// --- PPM -----------------------------------------------------------------
+// Method-D-ish PPM with full exclusion (mirrors host/ppm.py, itself the
+// behavior clone of the reference PPM.js).
+
+namespace ppm {
+
+constexpr int MAX_CONTEXT = 5;
+constexpr int LOG_WINDOW = 18;
+constexpr int64_t WINDOW = 1LL << LOG_WINDOW;
+constexpr int32_t INCR = 0x100;
+constexpr int32_t MAX_PROB = 0xFF00;
+
+struct Exclude {
+  bool ex[258] = {false};
+  int32_t total = 0;
+};
+
+struct DenseMTF {
+  std::vector<int32_t> sym;
+  std::vector<int32_t> prob;
+  int64_t refcount = 0;
+  int32_t size;
+
+  explicit DenseMTF(int32_t sz) : size(sz) {
+    sym = {sz};                 // escape
+    prob = {0, INCR};
+  }
+  int32_t rescale() {
+    int32_t seen = (int32_t)sym.size();
+    int32_t total = 0;
+    int32_t j = 0;
+    bool no_escape = true;
+    for (int32_t i = 0; i < seen; i++) {
+      int32_t s = sym[i];
+      int32_t f = (prob[i + 1] - prob[i]) >> 1;
+      if (f > 0) {
+        if (s == size) no_escape = false;
+        sym[j] = s;
+        prob[j] = total;
+        j++;
+        total += f;
+      }
+    }
+    prob[j] = total;
+    sym.resize(j);
+    prob.resize(j + 1);
+    if (no_escape && (int32_t)sym.size() < size)
+      total = update_at(size, (int32_t)sym.size(), 0, 1);
+    return total;
+  }
+  int32_t update_sym(int32_t symbol, int32_t incr) {
+    for (int32_t i = 0; i < (int32_t)sym.size(); i++)
+      if (sym[i] == symbol)
+        return update_at(symbol, i, prob[i + 1] - prob[i], incr);
+    return update_at(symbol, (int32_t)sym.size(), 0, incr);
+  }
+  int32_t update_at(int32_t symbol, int32_t index, int32_t sy_f,
+                    int32_t incr) {
+    int32_t seen = (int32_t)sym.size();
+    int32_t tot_f;
+    int32_t j = index;
+    for (; j < seen - 1; j++) {
+      sym[j] = sym[j + 1];
+      prob[j] = prob[j + 1] - sy_f;
+    }
+    if (index < seen) {
+      sym[j] = symbol;
+      prob[j] = prob[j + 1] - sy_f;
+      prob[seen] = tot_f = prob[seen] + incr;
+    } else {
+      tot_f = prob[seen];
+      sym.push_back(symbol);
+      prob.push_back(tot_f + incr);
+      prob[index] = tot_f;
+      tot_f += incr;
+      seen++;
+      if ((int32_t)sym.size() > size) {
+        for (int32_t i = 0; i < seen; i++) {
+          if (sym[i] == size) {
+            update_at(size, i, prob[i + 1] - prob[i], -1);
+            sym.pop_back();
+            prob.pop_back();
+            tot_f = prob.back();
+            break;
+          }
+        }
+      }
+    }
+    if (tot_f >= MAX_PROB) tot_f = rescale();
+    return tot_f;
+  }
+  // returns: 1 = coded, 0 = coded escape (literal came from this table's
+  // escape entry), -1 = symbol absent (escape coded, exclusions extended)
+  int32_t encode(rc::Enc& e, int32_t symbol, Exclude& ex) {
+    int32_t seen = (int32_t)sym.size();
+    int32_t ex_seen = 0, ex_tot = 0;
+    for (int32_t i = seen - 1; i >= 0; i--) {
+      int32_t lt_f = prob[i];
+      int32_t sy_f = prob[i + 1] - lt_f;
+      if (sym[i] == symbol) {
+        int32_t ex_lt = 0;
+        for (int32_t j = i - 1; j >= 0 && ex_seen < ex.total; j--) {
+          if (ex.ex[sym[j]]) {
+            ex_seen++;
+            int32_t f = prob[j + 1] - prob[j];
+            ex_lt += f;
+            ex_tot += f;
+          }
+        }
+        int32_t tot_f = prob[seen];
+        e.encode_freq(sy_f, lt_f - ex_lt, tot_f - ex_tot);
+        if (symbol == size) {
+          update_at(symbol, i, sy_f, INCR / 2);
+          return 0;
+        }
+        return 1;
+      } else if (ex.ex[sym[i]]) {
+        ex_seen++;
+        ex_tot += sy_f;
+      }
+    }
+    encode(e, size, ex);  // escape (always present here)
+    for (int32_t i = 0; i < (int32_t)sym.size() - 1; i++) {
+      if (!ex.ex[sym[i]]) {
+        ex.ex[sym[i]] = true;
+        ex.total++;
+      }
+    }
+    return -1;
+  }
+  int32_t decode(rc::Dec& d, Exclude& ex) {
+    int32_t seen = (int32_t)sym.size();
+    int32_t tot_f = prob[seen];
+    int32_t ex_seen = 0, ex_tot = 0;
+    for (int32_t i = seen - 1; i >= 0 && ex_seen < ex.total; i--) {
+      if (ex.ex[sym[i]]) {
+        ex_seen++;
+        ex_tot += prob[i + 1] - prob[i];
+      }
+    }
+    int32_t p = (int32_t)d.decode_cul_freq(tot_f - ex_tot) + ex_tot;
+    int32_t ex_lt = ex_tot;
+    int32_t i;
+    for (i = seen - 1; i >= 0; i--) {
+      if (ex.ex[sym[i]]) {
+        int32_t f = prob[i + 1] - prob[i];
+        ex_lt -= f;
+        p -= f;
+      } else if (prob[i] <= p) {
+        break;
+      }
+    }
+    int32_t symbol = sym[i];
+    int32_t lt_f = prob[i];
+    int32_t sy_f = prob[i + 1] - lt_f;
+    d.update(sy_f, lt_f - ex_lt, tot_f - ex_tot);
+    if (symbol < size) return symbol;
+    update_at(symbol, i, sy_f, INCR / 2);
+    for (int32_t k = 0; k < (int32_t)sym.size() - 1; k++) {
+      if (!ex.ex[sym[k]]) {
+        ex.ex[sym[k]] = true;
+        ex.total++;
+      }
+    }
+    return -1;
+  }
+};
+
+// Open-addressing context table for orders 3-5.  std::unordered_map's
+// node-per-entry chains were 55% of PPM encode time (~15M finds per
+// 2.1MB input); linear probing over flat arrays makes each lookup one
+// or two cache lines.  Real keys always carry the length tag
+// ((n+1)<<41, n>=3), so 0 and 1 are free for empty/tombstone.
+struct CtxMap {
+  static constexpr uint64_t EMPTY = 0, TOMB = 1;
+  std::vector<uint64_t> keys;
+  std::vector<DenseMTF*> vals;
+  size_t mask = 0;
+  size_t used = 0;     // live entries
+  size_t filled = 0;   // live + tombstones
+  CtxMap() { rehash_to(1 << 16); }
+  static inline size_t mix(uint64_t x) {   // splitmix64 finalizer
+    x += 0x9e3779b97f4a7c15ull;
+    x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ull;
+    x = (x ^ (x >> 27)) * 0x94d049bb133111ebull;
+    return (size_t)(x ^ (x >> 31));
+  }
+  void rehash_to(size_t cap) {
+    std::vector<uint64_t> ok = std::move(keys);
+    std::vector<DenseMTF*> ov = std::move(vals);
+    keys.assign(cap, EMPTY);
+    vals.assign(cap, nullptr);
+    mask = cap - 1;
+    filled = used;
+    for (size_t i = 0; i < ok.size(); i++) {
+      if (ok[i] > TOMB) {
+        size_t h = mix(ok[i]) & mask;
+        while (keys[h] != EMPTY) h = (h + 1) & mask;
+        keys[h] = ok[i];
+        vals[h] = ov[i];
+      }
+    }
+  }
+  DenseMTF* find(uint64_t k) const {
+    size_t h = mix(k) & mask;
+    while (true) {
+      uint64_t kk = keys[h];
+      if (kk == k) return vals[h];
+      if (kk == EMPTY) return nullptr;
+      h = (h + 1) & mask;
+    }
+  }
+  DenseMTF*& get_or_insert(uint64_t k) {
+    while (true) {
+      size_t h = mix(k) & mask;
+      size_t tomb = (size_t)-1;
+      while (true) {
+        uint64_t kk = keys[h];
+        if (kk == k) return vals[h];
+        if (kk == EMPTY) break;
+        if (kk == TOMB && tomb == (size_t)-1) tomb = h;
+        h = (h + 1) & mask;
+      }
+      if (filled >= mask - (mask >> 2)) {    // load 0.75 incl tombstones
+        // grow only if mostly live; otherwise just purge tombstones
+        rehash_to(used * 2 > mask ? (mask + 1) * 2 : mask + 1);
+        continue;
+      }
+      if (tomb != (size_t)-1) h = tomb; else filled++;
+      keys[h] = k;
+      vals[h] = nullptr;
+      used++;
+      return vals[h];
+    }
+  }
+  void erase(uint64_t k) {
+    size_t h = mix(k) & mask;
+    while (true) {
+      uint64_t kk = keys[h];
+      if (kk == k) {
+        keys[h] = TOMB;
+        vals[h] = nullptr;
+        used--;
+        return;
+      }
+      if (kk == EMPTY) return;
+      h = (h + 1) & mask;
+    }
+  }
+};
+
+struct Model {
+  int32_t size;
+  std::vector<uint8_t> win;
+  int64_t pos = 0;
+  bool first_pass = true;
+  // orders 0-2 are dense and hot: direct-indexed tables (order-0 one
+  // slot, order-1 by last byte, order-2 by last two bytes); orders 3-5
+  // live in the flat probing table keyed by packed context bytes
+  DenseMTF* o0 = nullptr;
+  std::vector<DenseMTF*> o1, o2;
+  CtxMap contexts;
+
+  DenseMTF** slot_for(uint64_t key, int order) {
+    if (order == 0) return &o0;
+    if (order == 1) return &o1[key & 0xFF];
+    if (order == 2) return &o2[key & 0xFFFF];
+    return nullptr;
+  }
+  DenseMTF* find(uint64_t key, int order) {
+    DenseMTF** s = slot_for(key, order);
+    if (s) return *s;
+    return contexts.find(key);
+  }
+  DenseMTF* find_or_create(uint64_t key, int order) {
+    DenseMTF** s = slot_for(key, order);
+    if (s) {
+      if (!*s) *s = new DenseMTF(size);
+      return *s;
+    }
+    DenseMTF*& v = contexts.get_or_insert(key);
+    if (!v) v = new DenseMTF(size);
+    return v;
+  }
+  void drop(uint64_t key, int order) {
+    DenseMTF** s = slot_for(key, order);
+    if (s) {
+      delete *s;
+      *s = nullptr;
+      return;
+    }
+    DenseMTF* m = contexts.find(key);
+    if (m) {
+      delete m;
+      contexts.erase(key);
+    }
+  }
+
+  explicit Model(int32_t sz)
+      : size(sz), win(WINDOW, 0), o1(256, nullptr), o2(65536, nullptr) {
+    const char* prime = "cSaCsA";
+    for (int i = 0; i < MAX_CONTEXT; i++) put((uint8_t)prime[i % 6]);
+    for (int i = 0; i < MAX_CONTEXT; i++) {
+      for (int j = 0; j <= i; j++) {
+        uint64_t cc = ctx_key(j + (MAX_CONTEXT - 1 - i), j);
+        find_or_create(cc, j)->refcount++;
+      }
+    }
+  }
+  ~Model() {
+    for (size_t i = 0; i < contexts.keys.size(); i++)
+      if (contexts.keys[i] > CtxMap::TOMB) delete contexts.vals[i];
+    delete o0;
+    for (auto* p : o1) delete p;
+    for (auto* p : o2) delete p;
+  }
+  void put(uint8_t b) {
+    win[pos++] = b;
+    if (pos >= WINDOW) { pos = 0; first_pass = false; }
+  }
+  uint64_t ctx_key(int64_t p, int n) const {
+    // the n bytes ending just before p, tagged with the length
+    uint64_t k = 0;
+    int64_t q = (p - n) & (WINDOW - 1);
+    for (int i = 0; i < n; i++) {
+      k = (k << 8) | win[q];
+      q++;
+      if (q >= WINDOW) q = 0;
+    }
+    return k | ((uint64_t)(n + 1) << 41);
+  }
+  // all MAX_CONTEXT+1 keys ending just before p in one backward pass:
+  // key[c] = key[c-1] with the byte c back ORed in one lane higher
+  // (identical values to ctx_key(p, c) for every c)
+  void ctx_keys(int64_t p, uint64_t* keys) const {
+    uint64_t k = 0;
+    keys[0] = (uint64_t)1 << 41;
+    for (int c = 1; c <= MAX_CONTEXT; c++) {
+      k |= (uint64_t)win[(p - c) & (WINDOW - 1)] << (8 * (c - 1));
+      keys[c] = k | ((uint64_t)(c + 1) << 41);
+    }
+  }
+  void update(int32_t symbol, int64_t at_pos, int c_match,
+              DenseMTF* const* seen = nullptr, int seen_from = 0x7f) {
+    uint64_t ks[MAX_CONTEXT + 1];
+    ctx_keys(at_pos, ks);
+    for (int c = 0; c <= MAX_CONTEXT; c++) {
+      // the encode/decode walk already looked these contexts up (from
+      // the longest down to the match level); reuse its non-null hits
+      DenseMTF* m = (seen && c >= seen_from && seen[c])
+          ? seen[c] : find_or_create(ks[c], c);
+      if (c >= c_match) m->update_sym(symbol, INCR / 2);
+      m->refcount++;
+    }
+    if (!first_pass) {
+      // GC contexts sliding out of the window: prefixes (length
+      // MAX_CONTEXT..0) of the bytes starting at pos, built up
+      // incrementally (k_c = k_{c-1} shifted with the next byte in)
+      uint64_t fwd[MAX_CONTEXT + 1];
+      fwd[0] = 0;
+      for (int c = 1; c <= MAX_CONTEXT; c++)
+        fwd[c] = (fwd[c - 1] << 8) | win[(pos + c - 1) & (WINDOW - 1)];
+      for (int c = MAX_CONTEXT; c >= 0; c--) {
+        uint64_t cc = fwd[c] | ((uint64_t)(c + 1) << 41);
+        DenseMTF* m = find(cc, c);
+        if (m && --m->refcount <= 0) drop(cc, c);
+      }
+    }
+    put((uint8_t)symbol);
+  }
+  void cm1_encode(rc::Enc& e, int32_t symbol, Exclude& ex) {
+    int32_t lt_f = 0;
+    for (int32_t i = 0; i < symbol; i++)
+      if (!ex.ex[i]) lt_f++;
+    e.encode_freq(1, lt_f, size - ex.total);
+  }
+  int32_t cm1_decode(rc::Dec& d, Exclude& ex) {
+    int32_t tot = size - ex.total;
+    int32_t lt = (int32_t)d.decode_cul_freq(tot);
+    int32_t symbol = lt;
+    for (int32_t i = 0; i <= symbol; i++)
+      if (ex.ex[i]) symbol++;
+    d.update(1, lt, tot);
+    return symbol;
+  }
+  void encode(rc::Enc& e, int32_t symbol) {
+    int64_t p0 = pos;
+    Exclude ex;
+    uint64_t ks[MAX_CONTEXT + 1];
+    ctx_keys(p0, ks);
+    DenseMTF* seen[MAX_CONTEXT + 1];
+    int c;
+    for (c = MAX_CONTEXT; c >= 0; c--) {
+      DenseMTF* m = find(ks[c], c);
+      seen[c] = m;
+      if (m) {
+        int32_t r = m->encode(e, symbol, ex);
+        if (r == 1) {
+          update(symbol, p0, c, seen, c);
+          return;
+        }
+      }
+    }
+    cm1_encode(e, symbol, ex);
+    update(symbol, p0, c, seen, 0);  // c == -1
+  }
+  int32_t decode(rc::Dec& d) {
+    int64_t p0 = pos;
+    Exclude ex;
+    uint64_t ks[MAX_CONTEXT + 1];
+    ctx_keys(p0, ks);
+    DenseMTF* seen[MAX_CONTEXT + 1];
+    int c;
+    int32_t symbol = -1;
+    for (c = MAX_CONTEXT; c >= 0; c--) {
+      DenseMTF* m = find(ks[c], c);
+      seen[c] = m;
+      if (m) {
+        symbol = m->decode(d, ex);
+        if (symbol >= 0) {
+          update(symbol, p0, c, seen, c);
+          return symbol;
+        }
+      }
+    }
+    symbol = cm1_decode(d, ex);
+    update(symbol, p0, c, seen, 0);
+    return symbol;
+  }
+};
+
+}  // namespace ppm
+
+// --- LZP3 ----------------------------------------------------------------
+
+namespace lzp3 {
+
+constexpr int LOG_WINDOW = 20;
+constexpr int64_t WINDOW = 1LL << LOG_WINDOW;
+constexpr int64_t MAX_MATCH = WINDOW - 1;
+constexpr uint32_t CTXT4_SIZE = 1 << 16;
+constexpr uint32_t CTXT3_SIZE = 1 << 12;
+constexpr uint32_t MAX24 = 0xFFFFFF;
+constexpr uint32_t MAX16 = 0xFFFF;
+constexpr int32_t LEN_CUTOFF = 256;
+
+struct Window {
+  std::vector<uint8_t> buf;
+  int64_t pos = 0;
+  std::vector<int64_t> c4, c3, c2;
+
+  explicit Window(int64_t max_size)
+      : buf(std::min(max_size + 4, WINDOW), 0),
+        c4(CTXT4_SIZE, 0), c3(CTXT3_SIZE, 0), c2(1 << 16, 0) {
+    put(0x63); put(0x53); put(0x61); put(0x20);
+  }
+  void ensure(int64_t i) {
+    if (i >= (int64_t)buf.size()) {
+      int64_t need = std::min(std::max(i + 1, (int64_t)buf.size() * 2),
+                              WINDOW);
+      buf.resize(need, 0);
+    }
+  }
+  uint8_t put(uint8_t b) {
+    ensure(pos);
+    buf[pos++] = b;
+    if (pos >= WINDOW) pos = 0;
+    return b;
+  }
+  uint8_t get(int64_t p) const {
+    int64_t i = p & (WINDOW - 1);
+    return i < (int64_t)buf.size() ? buf[i] : 0;
+  }
+  uint32_t context(int64_t p, int n) const {
+    uint32_t c = 0;
+    int64_t q = (p - n) & (WINDOW - 1);
+    for (int i = 0; i < n; i++) {
+      c = (c << 8) | get(q);
+      q++;
+      if (q >= WINDOW) q = 0;
+    }
+    return c;
+  }
+  int64_t get_index(int64_t s, int64_t match_len) {
+    uint32_t c = context(s, 4);
+    uint32_t h4 = ((c >> 15) ^ c) & (CTXT4_SIZE - 1);
+    uint32_t h3 = ((c >> 11) ^ c) & (CTXT3_SIZE - 1);
+    uint32_t h2 = c & MAX16;
+    int64_t p = 0;
+    if (match_len == 0) {
+      p = c4[h4];
+      if (p != 0 && c != context(p - 1, 4)) p = 0;
+      if (p == 0) {
+        p = c3[h3];
+        if (p != 0 && (c & MAX24) != context(p - 1, 3)) p = 0;
+        if (p == 0) {
+          p = c2[h2];
+          // reproduce the reference's (c && MAX16) confirmation quirk
+          uint32_t confirm = c ? MAX16 : 0;
+          if (p != 0 && confirm != context(p - 1, 2)) p = 0;
+        }
+      }
+    }
+    if (match_len) match_len--;
+    int64_t val = (s | (match_len << LOG_WINDOW)) + 1;
+    c4[h4] = val; c3[h3] = val; c2[h2] = val;
+    return p;
+  }
+};
+
+}  // namespace lzp3
+
 extern "C" {
+
+
+// Adaptive-Huffman order-0 codec ('huff'): alphabet 256 (size known),
+// table capacity 257, max_weight 8191.  Returns bytes written.
+int64_t cz_huff_encode(const uint8_t* data, int64_t n, uint8_t* out) {
+  vhuff::BitWriter bw;
+  bw.out = out;
+  vhuff::Coder<vhuff::BitWriter> h(257, 256, &bw, 8191);
+  for (int64_t i = 0; i < n; i++) h.encode(data[i]);
+  bw.flush();
+  return bw.o;
+}
+
+int64_t cz_huff_decode(const uint8_t* in, int64_t in_len, uint8_t* out,
+                       int64_t n) {
+  vhuff::BitReader br;
+  br.in = in;
+  br.len = in_len;
+  vhuff::Coder<vhuff::BitReader> h(257, 256, &br, 8191);
+  for (int64_t i = 0; i < n; i++) out[i] = (uint8_t)h.decode();
+  return 0;
+}
+
+// Order-1 adaptive-Huffman codec ('ctx1'): one coder per previous byte.
+int64_t cz_ctx1_encode(const uint8_t* data, int64_t n, uint8_t* out) {
+  vhuff::BitWriter bw;
+  bw.out = out;
+  std::vector<vhuff::Coder<vhuff::BitWriter>> coders;
+  coders.reserve(256);
+  for (int i = 0; i < 256; i++) coders.emplace_back(256, 256, &bw, 8191);
+  int last = 0x20;
+  for (int64_t i = 0; i < n; i++) {
+    coders[last].encode(data[i]);
+    last = data[i];
+  }
+  bw.flush();
+  return bw.o;
+}
+
+int64_t cz_ctx1_decode(const uint8_t* in, int64_t in_len, uint8_t* out,
+                       int64_t n) {
+  vhuff::BitReader br;
+  br.in = in;
+  br.len = in_len;
+  std::vector<vhuff::Coder<vhuff::BitReader>> coders;
+  coders.reserve(256);
+  for (int i = 0; i < 256; i++) coders.emplace_back(256, 256, &br, 8191);
+  int last = 0x20;
+  for (int64_t i = 0; i < n; i++) {
+    int32_t s = coders[last].decode();
+    out[i] = (uint8_t)s;
+    last = s;
+  }
+  return 0;
+}
+
+// Semi-static 'smpl' codec body: 128 KiB blocks, raw 16-bit counts, block
+// continuation bit, early cut on count saturation.
+int64_t cz_simple_encode(const uint8_t* data, int64_t n,
+                         int64_t* enc_state, uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  const int64_t MAXB = 1 << 17;
+  int64_t i = 0;
+  while (i < n) {
+    int32_t counts[257] = {0};
+    int64_t start = i;
+    while (i < n && i - start < MAXB) {
+      counts[data[i]]++;
+      i++;
+      if (counts[data[i - 1]] == 0xFFFF) break;  // saturation cut
+    }
+    int64_t blen = i - start;
+    e.encode_shift(1, 1, 1);  // continuation bit = 1
+    for (int k = 0; k < 256; k++) e.encode_shift(1, counts[k], 16);
+    int32_t cum[257];
+    int32_t run = 0;
+    for (int k = 0; k < 256; k++) { cum[k] = run; run += counts[k]; }
+    cum[256] = (int32_t)blen;
+    for (int64_t j = start; j < i; j++) {
+      int c = data[j];
+      e.encode_freq(counts[c], cum[c], (uint32_t)blen);
+    }
+  }
+  e.encode_shift(1, 0, 1);  // stop bit
+  e.store(enc_state);
+  return e.outlen;
+}
+
+int64_t cz_simple_decode(const uint8_t* in, int64_t in_len,
+                         int64_t* dec_state, uint8_t* out, int64_t cap) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  int64_t o = 0;
+  for (;;) {
+    uint32_t bit = d.decode_cul_shift(1);
+    d.update(1, bit, 2);
+    if (!bit) break;
+    int64_t counts[257];
+    for (int k = 0; k < 256; k++) {
+      uint32_t v = d.decode_cul_shift(16);
+      d.update(1, v, 1 << 16);
+      counts[k] = v;
+    }
+    int64_t cum[257];
+    int64_t run = 0;
+    for (int k = 0; k < 256; k++) { cum[k] = run; run += counts[k]; }
+    cum[256] = run;
+    for (int64_t j = 0; j < run; j++) {
+      uint32_t cf = d.decode_cul_freq((uint32_t)run);
+      // binary search the cumulative table (zero-width ranges exist)
+      int lo = 0, hi = 256;
+      while (lo + 1 < hi) {
+        int mid = (lo + hi) >> 1;
+        if (cum[mid] <= (int64_t)cf) lo = mid;
+        else hi = mid;
+      }
+      while (cum[lo + 1] <= (int64_t)cf) lo++;
+      if (o >= cap) return -1;
+      out[o++] = (uint8_t)lo;
+      d.update((uint32_t)(cum[lo + 1] - cum[lo]), (uint32_t)cum[lo],
+               (uint32_t)run);
+    }
+  }
+  d.store(dec_state);
+  return o;
+}
+
+// Order-0 whole-stream coding with the MTF-list model ('mtfm' codec).
+int64_t cz_order0_mtf_encode(const uint8_t* data, int64_t n, int32_t size,
+                             int32_t eof_sym, int64_t* enc_state,
+                             uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  dmc::MTFModel m(size, 0xFF00, 0x100);
+  for (int64_t i = 0; i < n; i++) m.encode(e, data[i]);
+  if (eof_sym >= 0) m.encode(e, eof_sym);
+  e.store(enc_state);
+  return e.outlen;
+}
+
+int64_t cz_order0_mtf_decode(const uint8_t* in, int64_t in_len,
+                             int64_t* dec_state, int32_t size,
+                             uint8_t* out, int64_t n) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  dmc::MTFModel m(size, 0xFF00, 0x100);
+  for (int64_t i = 0; i < n; i++) out[i] = (uint8_t)m.decode(d);
+  d.store(dec_state);
+  return 0;
+}
+
+// Order-0 whole-stream coding with the deferred-summation model ('dfsm').
+int64_t cz_order0_defsum_encode(const uint8_t* data, int64_t n,
+                                int32_t size, int32_t eof_sym,
+                                int64_t* enc_state, uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  rc::DefSum m(size, false);
+  for (int64_t i = 0; i < n; i++) m.encode(e, data[i]);
+  if (eof_sym >= 0) m.encode(e, eof_sym);
+  e.store(enc_state);
+  return e.outlen;
+}
+
+int64_t cz_order0_defsum_decode(const uint8_t* in, int64_t in_len,
+                                int64_t* dec_state, int32_t size,
+                                uint8_t* out, int64_t n) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  rc::DefSum m(size, true);
+  for (int64_t i = 0; i < n; i++) out[i] = (uint8_t)m.decode(d);
+  d.store(dec_state);
+  return 0;
+}
+
+// DMC whole-stream coding.
+int64_t cz_dmc_encode(const uint8_t* data, int64_t n, int32_t size,
+                      int32_t eof_sym, int64_t min1, int64_t min2,
+                      int64_t* enc_state, uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  dmc::Markov mm(size, min1, min2);
+  for (int64_t i = 0; i < n; i++) {
+    mm.nodes[mm.current].model.encode(e, data[i]);
+    mm.advance(data[i]);
+  }
+  if (eof_sym >= 0) {
+    mm.nodes[mm.current].model.encode(e, eof_sym);
+    mm.advance(eof_sym);
+  }
+  e.store(enc_state);
+  return e.outlen;
+}
+
+int64_t cz_dmc_decode(const uint8_t* in, int64_t in_len,
+                      int64_t* dec_state, int32_t size, int64_t min1,
+                      int64_t min2, uint8_t* out, int64_t n) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  dmc::Markov mm(size, min1, min2);
+  for (int64_t i = 0; i < n; i++) {
+    int32_t s = mm.nodes[mm.current].model.decode(d);
+    mm.advance(s);
+    out[i] = (uint8_t)s;
+  }
+  d.store(dec_state);
+  return 0;
+}
+
+// PPM whole-stream coding.  eof_sym >= 0 appends an EOF symbol.
+int64_t cz_ppm_encode(const uint8_t* data, int64_t n, int32_t size,
+                      int32_t eof_sym, int64_t* enc_state, uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  ppm::Model m(size);
+  for (int64_t i = 0; i < n; i++) m.encode(e, data[i]);
+  if (eof_sym >= 0) m.encode(e, eof_sym);
+  e.store(enc_state);
+  return e.outlen;
+}
+
+int64_t cz_ppm_decode(const uint8_t* in, int64_t in_len,
+                      int64_t* dec_state, int32_t size, uint8_t* out,
+                      int64_t n) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  ppm::Model m(size);
+  for (int64_t i = 0; i < n; i++) out[i] = (uint8_t)m.decode(d);
+  d.store(dec_state);
+  return 0;
+}
+
+// LZP3 encode body (after the 0x00 coder-mode byte; the caller wrote the
+// container).  data: input bytes; enc_state/out as in the BWTC entry.
+// Returns bytes written.
+int64_t cz_lzp3_encode(const uint8_t* data, int64_t n, int64_t* enc_state,
+                       uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  lzp3::Window w(n);
+  // literal model: order-1 context of 256 Fenwicks over alphabet 256
+  std::vector<rc::Fenwick> lit;
+  lit.reserve(256);
+  for (int i = 0; i < 256; i++) lit.emplace_back(256, 0xFF00, 0x100);
+  std::vector<rc::LogDistModel> lens;
+  lens.reserve(16);
+  for (int i = 0; i < 16; i++)
+    lens.emplace_back(lzp3::MAX_MATCH + 1, 1, lzp3::LEN_CUTOFF,
+                      0xFF00, 0x100);
+  int64_t i = 0;
+  uint32_t match_context = 0;
+  while (i < n) {
+    int64_t ch = data[i];
+    int64_t consumed_this = 1;
+    int64_t s = w.pos;
+    int64_t p = w.get_index(s, 0);
+    if (p != 0) {
+      p--;
+      int64_t prev_len = (p >> lzp3::LOG_WINDOW) + 1;
+      int64_t match_len = 0;
+      while (i + match_len < n && w.get(p + match_len) == data[i + match_len]
+             && match_len < lzp3::MAX_MATCH) {
+        w.put(data[i + match_len]);
+        match_len++;
+      }
+      auto& lm = lens[match_context & 15];
+      if (prev_len == match_len) lm.encode(e, -1);
+      else lm.encode(e, match_len);
+      w.get_index(s, match_len);
+      i += match_len;
+      match_context <<= 1;
+      if (match_len > 0) match_context |= 1;
+      if (i >= n) break;  // EOF right after match; size is known
+      ch = data[i];
+    }
+    uint8_t context1 = w.get(w.pos - 1);
+    lit[context1].encode(e, (int32_t)ch);
+    w.put((uint8_t)ch);
+    i++;
+    (void)consumed_this;
+  }
+  e.store(enc_state);
+  return e.outlen;
+}
+
+// --- LZJB family ---------------------------------------------------------
+// Multi-candidate match finder (EXPAND slots per hash bucket), inlined in
+// both variants below; C_COMPAT keeps offset 0 unusable in classic LZJB.
+
+// LZJB classic: copymap bytes + 2-byte matches.  Returns output length.
+int64_t cz_lzjb_encode(const uint8_t* data, int64_t n, int32_t lempel_size,
+                       int32_t expand, uint8_t* out) {
+  std::vector<uint16_t> lempel((size_t)lempel_size * expand, 0);
+  uint8_t window[1 << 10];
+  std::memset(window, 0, sizeof window);
+  const int WLEN = 1 << 10;
+  const int OFFSET_MASK = WLEN - 1;
+  int64_t windowpos = 0;
+  int64_t i = 0;
+  int64_t o = 0;
+  int copymask = 1 << 7;
+  int64_t mapbyte = -1;
+  int matches[512];
+  while (i < n) {
+    int c1 = data[i];
+    copymask <<= 1;
+    if (copymask == (1 << 8)) {
+      copymask = 1;
+      mapbyte = o;
+      out[o++] = 0;
+    }
+    if (i + 2 >= n) {
+      // fewer than 3 bytes left: literals
+      out[o++] = (uint8_t)c1;
+      window[windowpos++ & OFFSET_MASK] = (uint8_t)c1;
+      windowpos &= OFFSET_MASK;
+      i++;
+      continue;
+    }
+    int c2 = data[i + 1], c3 = data[i + 2];
+    uint32_t h = ((uint32_t)c1 << 16) + ((uint32_t)c2 << 8) + (uint32_t)c3;
+    h ^= (h >> 9);
+    h += (h >> 5);
+    h ^= (uint32_t)c1;
+    int64_t hp = (int64_t)(h & (lempel_size - 1)) * expand;
+    int nmatch = 0;
+    for (int j = 0; j < expand; j++) {
+      int offset = (int)((windowpos - lempel[hp + j]) & OFFSET_MASK);
+      int64_t cpy = WLEN + windowpos - offset;
+      int w1 = window[cpy & OFFSET_MASK];
+      int w2 = window[(cpy + 1) & OFFSET_MASK];
+      int w3 = window[(cpy + 2) & OFFSET_MASK];
+      if (offset == 0) w1 = c1 ^ 1;      // C_COMPAT: offset 0 unusable
+      else if (offset == 1) { w2 = c1; w3 = c2; }
+      else if (offset == 2) { w3 = c1; }
+      if (c1 == w1 && c2 == w2 && c3 == w3) matches[nmatch++] = offset;
+    }
+    for (int j = expand - 1; j > 0; j--) lempel[hp + j] = lempel[hp + j - 1];
+    lempel[hp] = (uint16_t)windowpos;
+    if (nmatch == 0) {
+      out[o++] = (uint8_t)c1;
+      window[windowpos++ & OFFSET_MASK] = (uint8_t)c1;
+      windowpos &= OFFSET_MASK;
+      i++;
+    } else {
+      out[mapbyte] |= (uint8_t)copymask;
+      for (int k = 0; k < 3; k++) {
+        window[windowpos++ & OFFSET_MASK] = data[i + k];
+        windowpos &= OFFSET_MASK;
+      }
+      int last = matches[0];
+      int mlen = 3;
+      int64_t base = WLEN + windowpos;
+      int64_t ip = i + 3;
+      while (mlen < 66) {
+        if (ip >= n) break;
+        int c4 = data[ip];
+        int j = 0;
+        while (j < nmatch) {
+          int w4 = window[(base - matches[j]) & OFFSET_MASK];
+          if (c4 != w4) {
+            last = matches[j];
+            for (int k = j; k < nmatch - 1; k++) matches[k] = matches[k + 1];
+            nmatch--;
+          } else {
+            j++;
+          }
+        }
+        if (nmatch == 0) break;
+        window[windowpos++ & OFFSET_MASK] = (uint8_t)c4;
+        windowpos &= OFFSET_MASK;
+        ip++;
+        mlen++;
+        base++;
+      }
+      if (nmatch != 0) last = matches[0];
+      out[o++] = (uint8_t)(((mlen - 3) << 2) | (last >> 8));
+      out[o++] = (uint8_t)(last & 0xFF);
+      i += mlen;
+    }
+  }
+  return o;
+}
+
+int64_t cz_lzjb_decode(const uint8_t* in, int64_t n, uint8_t* out,
+                       int64_t out_size) {
+  uint8_t window[1 << 10];
+  std::memset(window, 0, sizeof window);
+  const int WLEN = 1 << 10;
+  int64_t windowpos = 0;
+  int copymask = 1 << 7;
+  int copymap = 0;
+  int64_t i = 0, o = 0;
+  while (o != out_size && i < n) {
+    int c = in[i++];
+    copymask <<= 1;
+    if (copymask == (1 << 8)) {
+      copymask = 1;
+      copymap = c;
+      if (i >= n) break;
+      c = in[i++];
+    }
+    if (copymap & copymask) {
+      int mlen = (c >> 2) + 3;
+      if (i >= n) break;
+      int offset = (((c << 8) | in[i++]) & (WLEN - 1));
+      int64_t cpy = windowpos - offset;
+      if (cpy < 0) cpy += WLEN;
+      while (mlen-- > 0 && o < out_size) {
+        uint8_t b = window[cpy++];
+        window[windowpos++] = b;
+        out[o++] = b;
+        if (windowpos >= WLEN) windowpos = 0;
+        if (cpy >= WLEN) cpy = 0;
+      }
+    } else {
+      out[o++] = (uint8_t)c;
+      window[windowpos++] = (uint8_t)c;
+      if (windowpos >= WLEN) windowpos = 0;
+    }
+  }
+  return o;
+}
+
+// LZJB-R: same parse, range-coded.  Returns bytes written.
+int64_t cz_lzjbr_encode(const uint8_t* data, int64_t n,
+                        int32_t lempel_size, int32_t expand,
+                        int64_t* enc_state, uint8_t* out) {
+  rc::Enc e;
+  e.load(enc_state);
+  e.out = out;
+  e.outlen = 0;
+  std::vector<uint16_t> lempel((size_t)lempel_size * expand, 0);
+  uint8_t window[1 << 10];
+  std::memset(window, 0, sizeof window);
+  const int WLEN = 1 << 10;
+  const int OFFSET_MASK = WLEN - 1;
+  const int MATCH = 256;
+  // literal: order-1 context of 256 Fenwicks over 257 (MATCH+1)
+  std::vector<rc::Fenwick> lit;
+  lit.reserve(256);
+  for (int i = 0; i < 256; i++) lit.emplace_back(MATCH + 1, 0xFF00, 0x100);
+  rc::LogDistModel len_model(64, 0, 32, 0xFF00, 0x100);
+  rc::LogDistModel pos_model(WLEN, 1, 32, 0xFF00, 0x100);
+  int64_t windowpos = 0;
+  int64_t i = 0;
+  int last_char = 0x20;
+  int last_offset = 0;
+  int matches[512];
+  while (i < n) {
+    int64_t initial_pos = windowpos;
+    int c1 = data[i];
+    if (i + 2 >= n) {
+      window[windowpos++ & OFFSET_MASK] = (uint8_t)c1;
+      windowpos &= OFFSET_MASK;
+      lit[last_char].encode(e, c1);
+      last_char = c1;
+      i++;
+      continue;
+    }
+    int c2 = data[i + 1], c3 = data[i + 2];
+    uint32_t h = ((uint32_t)c1 << 16) + ((uint32_t)c2 << 8) + (uint32_t)c3;
+    h ^= (h >> 9);
+    h += (h >> 5);
+    h ^= (uint32_t)c1;
+    int64_t hp = (int64_t)(h & (lempel_size - 1)) * expand;
+    int nmatch = 0;
+    for (int j = 0; j < expand; j++) {
+      int offset = (int)((windowpos - lempel[hp + j]) & OFFSET_MASK);
+      int64_t cpy = WLEN + windowpos - offset;
+      int w1 = window[cpy & OFFSET_MASK];
+      int w2 = window[(cpy + 1) & OFFSET_MASK];
+      int w3 = window[(cpy + 2) & OFFSET_MASK];
+      if (offset == 1) { w2 = c1; w3 = c2; }
+      else if (offset == 2) { w3 = c1; }
+      if (c1 == w1 && c2 == w2 && c3 == w3) matches[nmatch++] = offset;
+    }
+    for (int j = expand - 1; j > 0; j--) lempel[hp + j] = lempel[hp + j - 1];
+    lempel[hp] = (uint16_t)windowpos;
+    if (nmatch == 0) {
+      window[windowpos++ & OFFSET_MASK] = (uint8_t)c1;
+      windowpos &= OFFSET_MASK;
+      lit[last_char].encode(e, c1);
+      last_char = c1;
+      i++;
+    } else {
+      lit[last_char].encode(e, MATCH);
+      for (int k = 0; k < 3; k++) {
+        window[windowpos++ & OFFSET_MASK] = data[i + k];
+        windowpos &= OFFSET_MASK;
+      }
+      last_char = c3;
+      int last = matches[0];
+      int mlen = 3;
+      int64_t base = WLEN + windowpos;
+      int64_t ip = i + 3;
+      while (mlen < 66) {
+        if (ip >= n) break;
+        int c4 = data[ip];
+        int j = 0;
+        while (j < nmatch) {
+          int w4 = window[(base - matches[j]) & OFFSET_MASK];
+          if (c4 != w4) {
+            last = matches[j];
+            for (int k = j; k < nmatch - 1; k++) matches[k] = matches[k + 1];
+            nmatch--;
+          } else {
+            j++;
+          }
+        }
+        if (nmatch == 0) break;
+        window[windowpos++ & OFFSET_MASK] = (uint8_t)c4;
+        windowpos &= OFFSET_MASK;
+        last_char = c4;
+        ip++;
+        mlen++;
+        base++;
+      }
+      if (nmatch != 0) last = matches[0];
+      len_model.encode(e, mlen - 3);
+      int offset = (int)((initial_pos - last) & OFFSET_MASK);
+      if (offset == last_offset) {
+        pos_model.encode(e, -1);
+      } else {
+        pos_model.encode(e, offset);
+        last_offset = offset;
+      }
+      i += mlen;
+    }
+  }
+  e.store(enc_state);
+  return e.outlen;
+}
+
+int64_t cz_lzjbr_decode(const uint8_t* in, int64_t in_len,
+                        int64_t* dec_state, uint8_t* out,
+                        int64_t out_size) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  uint8_t window[1 << 10];
+  std::memset(window, 0, sizeof window);
+  const int WLEN = 1 << 10;
+  const int MATCH = 256;
+  std::vector<rc::Fenwick> lit;
+  lit.reserve(256);
+  for (int i = 0; i < 256; i++) lit.emplace_back(MATCH + 1, 0xFF00, 0x100);
+  rc::LogDistModel len_model(64, 0, 32, 0xFF00, 0x100);
+  rc::LogDistModel pos_model(WLEN, 1, 32, 0xFF00, 0x100);
+  int64_t windowpos = 0;
+  int last_char = 0x20;
+  int64_t last_offset = 0;
+  int64_t o = 0;
+  while (o != out_size) {
+    int32_t c = lit[last_char].decode(d);
+    if (c == MATCH) {
+      int64_t mlen = len_model.decode(d) + 3;
+      int64_t cpy = pos_model.decode(d);
+      if (cpy < 0) cpy = last_offset;
+      else last_offset = cpy;
+      while (mlen-- > 0) {
+        uint8_t b = window[cpy++];
+        last_char = b;
+        window[windowpos++] = b;
+        out[o++] = b;
+        if (windowpos >= WLEN) windowpos = 0;
+        if (cpy >= WLEN) cpy = 0;
+      }
+    } else {
+      out[o++] = (uint8_t)c;
+      last_char = c;
+      window[windowpos++] = (uint8_t)c;
+      if (windowpos >= WLEN) windowpos = 0;
+    }
+  }
+  d.store(dec_state);
+  return 0;
+}
+
+int64_t cz_lzp3_decode(const uint8_t* in, int64_t in_len,
+                       int64_t* dec_state, uint8_t* out, int64_t n) {
+  rc::Dec d;
+  d.load(dec_state);
+  d.in = in;
+  d.len = in_len;
+  lzp3::Window w(n);
+  std::vector<rc::Fenwick> lit;
+  lit.reserve(256);
+  for (int i = 0; i < 256; i++) lit.emplace_back(256, 0xFF00, 0x100);
+  std::vector<rc::LogDistModel> lens;
+  lens.reserve(16);
+  for (int i = 0; i < 16; i++)
+    lens.emplace_back(lzp3::MAX_MATCH + 1, 1, lzp3::LEN_CUTOFF,
+                      0xFF00, 0x100);
+  int64_t o = 0;
+  uint32_t match_context = 0;
+  while (o < n) {
+    int64_t s = w.pos;
+    int64_t p = w.get_index(s, 0);
+    if (p != 0) {
+      p--;
+      int64_t prev_len = (p >> lzp3::LOG_WINDOW) + 1;
+      int64_t match_len = lens[match_context & 15].decode(d);
+      if (match_len < 0) match_len = prev_len;
+      // a corrupt stream can code a match longer than the remaining
+      // output; clamp so the copy below cannot write past `out`
+      if (match_len > n - o) match_len = n - o;
+      for (int64_t k = 0; k < match_len; k++) {
+        uint8_t ch = w.get(p + k);
+        out[o++] = w.put(ch);
+      }
+      w.get_index(s, match_len);
+      match_context <<= 1;
+      if (match_len > 0) match_context |= 1;
+    }
+    if (o >= n) break;
+    uint8_t context1 = w.get(w.pos - 1);
+    int32_t ch = lit[context1].decode(d);
+    out[o++] = w.put((uint8_t)ch);
+  }
+  d.store(dec_state);
+  return 0;
+}
 
 // BWTC block body: RLE2-code the MTF index stream through a fresh
 // Fenwick (fast=0) or DefSum (fast=1) model on a shared range coder.

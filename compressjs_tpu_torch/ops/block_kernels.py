@@ -15,6 +15,11 @@ move-to-front and RLE2 (counterpart of ``compressjs_tpu.ops.jax_kernels``).
   CPU tensor the plain version `mtf_encode_plain` runs, one vector step
   per chunk position over every chunk's list at once.
 * `rle2_encode` -- RUNA/RUNB zero-run digits by segment math.
+* `group_costs_dev`, `chunk_freqs_dev` and `payload_pack_dev` -- the JAX
+  package's Huffman group scans over a symbol stream that stays on the
+  device (chunk costs under each table, per-group frequencies from the
+  selectors, the packed payload), as plain tensor code: the JAX package
+  computes them outside any Pallas kernel.
 
 All functions take tensors on any device and return tensors on it.
 """
@@ -28,6 +33,9 @@ from . import _cuda
 CHUNK_LEN = 512          # MTF chunk length (fixed in csrc/mtf_scan.cu)
 TILE_CHUNKS = 16         # chunks per tile of the start-list scan (the same)
 MAX_BLOCK = 1 << 20      # ranks and indices must pack into 20 bits
+GROUP_SIZE = 50          # symbols per Huffman selector
+GROUP_ROW = 260          # width of a group's row of the table matrices
+MAX_CODE_BITS = 20       # longest bzip2 Huffman code
 
 
 def _seg_start(diff):
@@ -404,3 +412,65 @@ def encode_block_core(block, n, remap, eob):
     mtf_seq = mtf_encode(dense, n)
     syms, count, freq = rle2_encode(mtf_seq, n, eob)
     return pidx, syms, count, freq
+
+
+def group_costs_dev(syms, count, length_matrix):
+    """(n_chunks, n_groups) int32 bit cost of coding each 50-symbol chunk
+    of `syms` with each row of `length_matrix` (n_groups, 260); symbols
+    at or past `count` cost 0."""
+    syms = syms.to(torch.int64)
+    n = syms.shape[0]
+    g = length_matrix.shape[0]
+    valid = torch.arange(n, device=syms.device) < count
+    per_sym = torch.where(valid[None, :], length_matrix[:, syms],
+                          torch.zeros((), dtype=length_matrix.dtype,
+                                      device=syms.device))
+    n_chunks = -(-n // GROUP_SIZE)
+    per_sym = torch.nn.functional.pad(per_sym, (0, n_chunks * GROUP_SIZE - n))
+    return per_sym.reshape(g, n_chunks, GROUP_SIZE).sum(dim=2).T \
+        .to(torch.int32)
+
+
+def chunk_freqs_dev(syms, count, n_groups, selectors, alphabet_size=None):
+    """(n_groups, 260) int32 counts of the symbols before `count` in the
+    group each chunk's selector names.  `alphabet_size` is not read (the
+    rows are 260 wide), as in the JAX function."""
+    syms = syms.to(torch.int64)
+    n = syms.shape[0]
+    idx = torch.arange(n, device=syms.device)
+    sel = selectors.to(torch.int64)[idx // GROUP_SIZE]
+    dump = n_groups * GROUP_ROW
+    flat = torch.where(idx < count, sel * GROUP_ROW + syms,
+                       torch.full((), dump, device=syms.device))
+    flat = torch.where(flat > dump, dump, flat)   # past the rows: dropped
+    counts = torch.bincount(flat, minlength=dump + 1)
+    return counts[:dump].reshape(n_groups, GROUP_ROW).to(torch.int32)
+
+
+def payload_pack_dev(syms, count, selectors, length_matrix, code_matrix):
+    """The Huffman payload of the symbols before `count`, each coded with
+    the (length, code) its chunk's selector picks from the (groups, 260)
+    tables, MSB first: (uint8 bytes of ((n * 20 + 7) // 8) * 8 bits, zero
+    past the payload; total bits as an int32 tensor)."""
+    syms = syms.to(torch.int64)
+    n = syms.shape[0]
+    dev = syms.device
+    idx = torch.arange(n, device=dev)
+    sel = selectors.to(torch.int64)[idx // GROUP_SIZE]
+    lens = torch.where(idx < count, length_matrix[sel, syms].to(torch.int64),
+                       torch.zeros((), dtype=torch.int64, device=dev))
+    codes = code_matrix[sel, syms].to(torch.int64)
+    offsets = torch.cumsum(lens, 0) - lens
+    total = lens.sum().to(torch.int32)
+    max_bits = ((n * MAX_CODE_BITS + 7) // 8) * 8
+    t = torch.arange(MAX_CODE_BITS, device=dev)
+    shifts = lens[:, None] - 1 - t[None, :]
+    bits = ((codes[:, None] >> shifts.clamp(min=0)) & 1).to(torch.uint8)
+    positions = torch.where(shifts >= 0, offsets[:, None] + t[None, :],
+                            torch.full((), max_bits, device=dev))
+    out = torch.zeros(max_bits + 1, dtype=torch.uint8, device=dev)
+    out[positions.reshape(-1)] = bits.reshape(-1)   # the last slot: a dump
+    weights = 1 << (7 - torch.arange(8, device=dev))
+    packed = (out[:max_bits].reshape(-1, 8).to(torch.int64)
+              * weights[None, :]).sum(dim=1).to(torch.uint8)
+    return packed, total

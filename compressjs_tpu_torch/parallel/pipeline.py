@@ -10,7 +10,8 @@ goes to the device in one of three splits:
   payload and the small table matrices and writes the block header.
 * ``'core'``: sort, BWT, MTF and RLE2 on the device
   (``ops.block_kernels.encode_block_core``); the host downloads the
-  symbol stream and runs the Huffman stages (`_finish_block`).
+  symbol stream and runs the Huffman stages (`_finish_block`, shared
+  with the host codec ``host.bzip2``).
 * ``'hybrid'``: sort and BWT on the device; MTF, RLE2 and the Huffman
   stages on the host.  With ``batch=True`` every full-size block's BWT
   is one call (``ops.block_kernels.bwt_block_batch``).
@@ -51,7 +52,6 @@ whose device result passes its caps is coded again on the host
 from __future__ import annotations
 
 import hashlib
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -62,9 +62,9 @@ from ..host import bwt as host_bwt
 from ..host import bwtc as host_bwtc
 from ..host import bwtcl as host_bwtcl
 from ..host import bwtcp as host_bwtcp
-from ..host import huffman_stages as hs
-from ..host.bits import SQRTPI, WHOLEPI, BitArrayWriter, BitWriter
+from ..host.bits import SQRTPI, WHOLEPI, BitWriter
 from ..host.bwt import bwtransform2
+from ..host.bzip2 import _block_header, _finish_block, _ref_ties_default
 from ..host.crc32 import crc32_bzip2, stream_crc_combine
 from ..host.mtf_rle2 import mtf_rle2
 from ..host.range_coder import RangeCoder
@@ -124,27 +124,6 @@ def _block_meta(block):
     return used, len(alphabet), remap
 
 
-def _block_header(pidx, used, selectors, tables):
-    """Block header bits after the block CRC: randomised flag, pidx,
-    used-byte bitmap, group count, selectors and length tables."""
-    w = BitArrayWriter()
-    w.write_bit(0)  # not randomised
-    w.write_bits(24, int(pidx))
-    compact = used.reshape(16, 16).any(axis=1)
-    for i in range(16):
-        w.write_bit(bool(compact[i]))
-    for i in range(16):
-        if compact[i]:
-            for j in range(16):
-                w.write_bit(bool(used[(i << 4) | j]))
-    w.write_bits(3, len(tables))
-    w.write_bits(15, len(selectors))
-    w.append(hs.selector_mtf_bits(selectors, len(tables)))
-    for lengths in tables:
-        w.append(hs.emit_table_deltas(lengths))
-    return w.bits()
-
-
 def _device_block_header(pidx, lens, n_groups, sel, count, alphabet_size,
                          used):
     """`_block_header` from the matrices encode_block_full downloads."""
@@ -152,33 +131,6 @@ def _device_block_header(pidx, lens, n_groups, sel, count, alphabet_size,
     m = alphabet_size + 2
     return _block_header(pidx, used, sel[:nvc],
                          [lens[g, :m] for g in range(n_groups)])
-
-
-def _ref_ties_default():
-    """Whether COMPRESSJS_TPU_BZ2_REF_TIES asks for the reference's
-    grouping (``host.huffman_stages.optimize_groups``'s `ref_ties`), as
-    the JAX package reads it."""
-    return os.environ.get('COMPRESSJS_TPU_BZ2_REF_TIES',
-                          '0') not in ('0', '', 'false')
-
-
-def _finish_block(block, pidx, syms, count, freq, alphabet_size, used,
-                  ref_ties=None):
-    """Host entropy stage of 'core' and 'hybrid': group optimisation,
-    canonical codes and payload packing of the symbol stream.  `ref_ties`
-    defaults to `_ref_ties_default()`.  Returns (header_bits,
-    (payload_bytes, nbits))."""
-    if ref_ties is None:
-        ref_ties = _ref_ties_default()
-    end_of_block = alphabet_size + 1
-    syms = syms[:count]
-    length_matrix, selectors = hs.optimize_groups(
-        syms, end_of_block + 1, freq[:end_of_block + 1], ref_ties)
-    code_matrix = np.stack([hs.canonical_codes(row)
-                            for row in length_matrix])
-    payload = hs.payload_bytes(syms, selectors, length_matrix, code_matrix)
-    return _block_header(pidx, used, selectors, list(length_matrix)), \
-        payload
 
 
 def _block_bits(block, used, alphabet_size, res):

@@ -173,3 +173,59 @@ def test_mtf_scan_refuses_other_devices():
     d = torch.empty(1000, dtype=torch.int32, device='meta')
     with pytest.raises(RuntimeError):
         bk.mtf_encode(d, 1000)
+
+
+@pytest.fixture(scope='module')
+def group_setup():
+    """The setup of the JAX package's device Huffman stage test: one
+    block's RLE2 symbols, its optimised tables padded to (6, 260) and its
+    selectors, on generated data."""
+    from compressjs_tpu.ops import huffman_stages as hs
+    from compressjs_tpu.ops import mtf as mtf_host
+    from compressjs_tpu.ops import rle as rle_host
+    rng = np.random.default_rng(9)
+    d = np.minimum(rng.zipf(1.3, 20000), 255).astype(np.uint8)
+    alpha = mtf_host.used_alphabet(d)
+    m = mtf_host.mtf_encode(d, alpha)
+    eob = len(alpha) + 1
+    syms = rle_host.mtf_rle2_encode(m, eob)
+    freq = np.bincount(syms, minlength=eob + 1)
+    lm, sel = hs.optimize_groups(syms.astype(np.int64), eob + 1, freq)
+    L = np.full((6, 260), 255, dtype=np.int32)
+    L[:lm.shape[0], :eob + 1] = lm
+    L[:lm.shape[0], eob + 1:] = 0
+    cm = np.stack([hs.canonical_codes(lm[g]) for g in range(lm.shape[0])])
+    C = np.zeros((6, 260), dtype=np.int32)
+    C[:cm.shape[0], :eob + 1] = cm
+    pad = np.full(len(syms) + 7, eob, dtype=np.int16)
+    pad[:len(syms)] = syms
+    selpad = np.zeros(-(-pad.shape[0] // 50), dtype=np.int32)
+    selpad[:len(sel)] = sel
+    return pad, len(syms), L, C, selpad, eob
+
+
+@pytest.mark.parametrize('cut', [0, 1, 777])
+def test_device_huffman_group_helpers_match_jax(group_setup, cut):
+    """group_costs_dev, chunk_freqs_dev and payload_pack_dev element for
+    element against the JAX functions (the payload's bytes past `total`
+    and `total` included), also with `count` short of the symbols."""
+    pad, count, L, C, selpad, eob = group_setup
+    count -= cut
+    t = torch.from_numpy
+    want = np.asarray(jk.group_costs_dev(jnp.asarray(pad), jnp.int32(count),
+                                         jnp.asarray(L)))
+    got = bk.group_costs_dev(t(pad), count, t(L))
+    assert got.dtype == torch.int32 and got.numpy().shape == want.shape
+    assert (got.numpy() == want).all()
+    want = np.asarray(jk.chunk_freqs_dev(jnp.asarray(pad), jnp.int32(count),
+                                         6, jnp.asarray(selpad), eob + 1))
+    got = bk.chunk_freqs_dev(t(pad), torch.tensor(count), 6, t(selpad),
+                             eob + 1)
+    assert got.numpy().shape == want.shape and (got.numpy() == want).all()
+    wp, wt = jk.payload_pack_dev(jnp.asarray(pad), jnp.int32(count),
+                                 jnp.asarray(selpad), jnp.asarray(L),
+                                 jnp.asarray(C))
+    gp, gt = bk.payload_pack_dev(t(pad), count, t(selpad), t(L), t(C))
+    assert int(gt) == int(wt)
+    assert gp.dtype == torch.uint8
+    assert gp.numpy().tobytes() == np.asarray(wp).tobytes()

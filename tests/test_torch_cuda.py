@@ -800,3 +800,23 @@ def test_bwtcp_and_bwtcl_on_card(cuda):
     # the encodes code through the fused entry alone
     for k in ('fenwick_encode', 'range_encode'):
         assert _cuda.launches[k] == before[k], k
+
+
+@pytest.mark.parametrize('golden', ['sample5_bzip2_9.bz2',
+                                    'sample5x4_bzip2_9.bz2'])
+def test_cli_bzip2_encode_on_card_equals_golden(cuda, tmp_path, golden):
+    """`python -m compressjs_tpu_torch.cli -z -t bzip2 -9` (in-process)
+    on the card gives the golden's bytes, through the MTF scan and the
+    fused code-length kernel; `-d` gives the input back."""
+    from compressjs_tpu_torch import cli
+    with open(os.path.join(GOLDEN, golden), 'rb') as f:
+        want = f.read()
+    src, out, back = tmp_path / 'in', tmp_path / 'out.bz2', tmp_path / 'back'
+    src.write_bytes(bz2.decompress(want))
+    before = dict(_cuda.launches)
+    assert cli.main(['-z', '-t', 'bzip2', '-9', str(src), str(out)]) == 0
+    assert _cuda.launches['mtf_scan'] > before['mtf_scan']
+    assert _cuda.launches['code_lengths'] > before['code_lengths']
+    assert out.read_bytes() == want
+    assert cli.main(['-d', '-t', 'bzip2', str(out), str(back)]) == 0
+    assert back.read_bytes() == src.read_bytes()

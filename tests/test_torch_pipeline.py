@@ -197,11 +197,31 @@ def test_import_isolation():
             'import compressjs_tpu_torch.ops.device_lane;'
             'import compressjs_tpu_torch.host.bwtcp;'
             'import compressjs_tpu_torch.host.bwtcl;'
+            'import compressjs_tpu_torch.config;'
+            'import compressjs_tpu_torch.cli;'
+            'import compressjs_tpu_torch.host.bzip2;'
+            'import compressjs_tpu_torch.host.simple;'
+            'import compressjs_tpu_torch.host.lzjb;'
+            'import compressjs_tpu_torch.host.lzjbr;'
+            'import compressjs_tpu_torch.host.lzp3;'
+            'import compressjs_tpu_torch.host.dmc;'
+            'import compressjs_tpu_torch.host.ppm;'
+            'import compressjs_tpu_torch.host.huffman;'
+            'import compressjs_tpu_torch.host.mtf_model;'
+            'import compressjs_tpu_torch.host.context1_model;'
+            'import compressjs_tpu_torch.host.deflate_distance_model;'
+            'import compressjs_tpu_torch.host.dummy_range_coder;'
+            '[getattr(compressjs_tpu_torch, n) for n in'
+            ' compressjs_tpu_torch.__all__];'
             'compressjs_tpu_torch.bwtcl_compress_device(bytes(range(256)) * 40,'
             ' device="cpu");'
             'compressjs_tpu_torch.DeviceBWTCEncoder(1, device="cpu")'
             '.compress(bytes(range(256)) * 400);'
             'compressjs_tpu_torch.native.lib();'
+            'd = bytes(range(256)) * 20;'
+            'assert all(bytes(getattr(compressjs_tpu_torch, c).decompress_file('
+            'getattr(compressjs_tpu_torch, c).compress_file(d))) == d for c in'
+            ' ("Bzip2", "Lzp3", "Lzjb", "LzjbR", "PPM", "Dmc", "Simple"));'
             'bad = [m for m in sys.modules if m.split(".")[0].startswith('
             '"jax") or m.split(".")[0] == "compressjs_tpu"];'
             'print(bad); sys.exit(1 if bad else 0)')
