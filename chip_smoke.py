@@ -18,7 +18,10 @@ the allocator (one thread's chain from L2 and from shared memory, one
 SM's staging rate), counts the group optimisation's launches and
 syncing reads per block with the fused build and with the build it
 replaced, builds the native host runtime with g++ and holds each of its
-entries equal to its numpy twin on every sample5x4 block (timing both),
+entries equal to its numpy twin on every sample5x4 block (timing both)
+and its two sort pairs equal on sample5x4's first block (the two-stage
+suffix sort against SA-IS, the direct rotation sort against SA-IS on
+the doubled string; each sort timed),
 re-encodes the in-repo bzip2 goldens at -9 through
 ``compress_file_device`` in every encoder split ('full', the main path;
 'core', 'hybrid', 'hybrid' with one batched BWT, 'hybrid' with
@@ -57,12 +60,13 @@ the NCCL group ``mesh_compress_bwtcp``.  Then the command line
 (``compressjs_tpu_torch.cli``): in this process -z -t bzip2 -9 of
 sample5x4 against its golden (mtf_scan and code_lengths launched) and
 -d back, -z -t bwtcp -9 (fenwick_code launched) and -z -t bwtc -9
-against the host codecs' bytes, and every host codec's round trip of
-sample5 at level 7; and one ``python -m compressjs_tpu_torch.cli``
-subprocess, -z -t bzip2 -9 of sample5 from stdin to stdout against its
-golden.  It times the encode in each split (wall and the card's
-idle share), the decode, each multi-block path, each BWTC path and each
-kernel, and prints:
+against the host codecs' bytes, every host codec's round trip of
+sample5 at level 7, and -d of two corrupt sample5 streams, which must
+exit 1 with the JAX command line's stderr line; and one ``python -m
+compressjs_tpu_torch.cli`` subprocess, -z -t bzip2 -9 of sample5 from
+stdin to stdout against its golden.  It times the encode in each split
+(wall and the card's idle share), the decode, each multi-block path,
+each BWTC path and each kernel, and prints:
 
 * the card's name and power limit, as nvidia-smi reports them;
 * one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -74,7 +78,9 @@ card it exits non-zero before printing any result.
 """
 
 import bz2
+import contextlib
 import faulthandler
+import io
 import json
 import os
 import subprocess
@@ -1016,6 +1022,31 @@ def check_host_runtime(data):
                      'plain_ms_per_call': e['plain_ms'] / e['plain_calls'],
                      'plain_calls': e['plain_calls']}
     return out, len(blocks), data.shape[0]
+
+
+def check_native_sorts(data, reps=2):
+    """The native runtime's two sort pairs on the first -9 block of
+    `data`: the two-stage suffix sort against plain SA-IS, and the direct
+    rotation sort (the cyclic BWT) against SA-IS on the doubled string.
+    Each pair must agree; returns (block bytes, {entry: least ms of
+    `reps` calls})."""
+    from compressjs_tpu_torch import native
+    from compressjs_tpu_torch.host import rle1
+    block, _ = rle1.rle1_encode(np.frombuffer(data, np.uint8), 0, 899981)
+    ms, out = {}, {}
+    for name in ('suffix_sort', 'suffix_sort_sais', 'bwt_cyclic',
+                 'bwt_cyclic_ref'):
+        best = None
+        for _ in range(reps):
+            out[name], sec = timed(getattr(native, name), block)
+            best = sec if best is None else min(best, sec)
+        ms[name] = best * 1e3
+    if not np.array_equal(out['suffix_sort'], out['suffix_sort_sais']):
+        raise AssertionError('suffix_sort differs from suffix_sort_sais')
+    (u1, p1), (u2, p2) = out['bwt_cyclic'], out['bwt_cyclic_ref']
+    if p1 != p2 or not np.array_equal(u1, u2):
+        raise AssertionError('bwt_cyclic differs from bwt_cyclic_ref')
+    return block.shape[0], ms
 
 
 def check_host_decode(comp, want):
@@ -2017,6 +2048,25 @@ def cli_phase(cz, s5, s5_comp, s5x4, s5x4_comp, card):
                 raise AssertionError('cli %s round trip differs' % key)
             res['-z -t %s' % key]['ratio'] = \
                 os.path.getsize(path('s5.' + key)) / len(s5)
+        # corrupt streams: the JAX command line's stderr line and exit 1
+        # (its texts, which tests/test_torch_cli.py holds the port to)
+        for label, bad, want in (
+                ('bad block magic', s5_comp[:4] + bytes([s5_comp[4] ^ 0xFF])
+                 + s5_comp[5:], 'error: Not bzip data\n'),
+                ('truncated in half', s5_comp[:len(s5_comp) // 2],
+                 'error: Data error\n')):
+            with open(path('bad.bz2'), 'wb') as f:
+                f.write(bad)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                code = cli.main(['-d', '-t', 'bzip2', path('bad.bz2'),
+                                 path('bad.out')])
+            if code != 1 or err.getvalue() != want:
+                raise AssertionError('cli -d of a corrupt stream (%s): exit '
+                                     '%r, stderr %r, not 1 and %r'
+                                     % (label, code, err.getvalue(), want))
+            print('  -d -t bzip2 of sample5 with a %s: exit 1, stderr %r '
+                  '(the JAX CLI\'s)' % (label, want), flush=True)
         env = dict(os.environ, PYTHONPATH=ROOT)
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -2095,6 +2145,10 @@ def main():
     print('  host runtime: ' + json.dumps({
         'cpu': native.build_info['cpu'], 'march': native.build_info['march'],
         'entries': host_rt}))
+    sort_n, sort_ms = check_native_sorts(s5x4)
+    print('  native sorts on the first block of sample5x4 (%d B), least of '
+          '2 calls, each pair equal: %s'
+          % (sort_n, ', '.join('%s %.2f ms' % kv for kv in sort_ms.items())))
 
     phase('MTF encode kernels vs plain versions')
     rng = np.random.default_rng(1234)

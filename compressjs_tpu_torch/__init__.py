@@ -47,9 +47,10 @@ codecs, coders and models): the classes `Stream`, `BitStream`, `BWT`,
 `LogDistanceModel` and `DeflateDistanceModel`, and the codecs `Bzip2`,
 `BWTC`, `BWTCP`, `Lzp3`, `Lzjb`, `LzjbR`, `PPM`, `Dmc` and `Simple`
 (loaded at first use), each with ``compress_file`` / ``decompress_file``
-byte for byte the JAX package's.  ``python -m compressjs_tpu_torch.cli``
-is its command line, with the bzip2, BWTC and BWTC-P encodes on the
-card (``--device``).
+byte for byte the JAX package's.  The subpackages `coders`, `models`
+and `utils` re-export them under the JAX package's import paths.
+``python -m compressjs_tpu_torch.cli`` is its command line, with the
+bzip2, BWTC and BWTC-P encodes on the card (``--device``).
 
 The host stages run in a native runtime (``native``, C++ built by g++ at
 first use).  Hand-written CUDA kernels carry the MTF scan, the Huffman

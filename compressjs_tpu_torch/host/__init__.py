@@ -14,7 +14,8 @@ EOF-terminated BWT (in `bwt`), the streams and the container helpers;
 and the rest of the JAX package's public layer: the `Bzip2` codec class
 (`bzip2`), the codecs LZP3, LZJB, LZJB-R, PPM, DMC and Simple, the
 adaptive Huffman coder, the MTF-list, order-1 and deflate-distance
-models and the dummy coder.  The sequential scans among them call the
+models, the dummy coder, the incremental `CRC32` (`crc32`) and
+`freeze`.  The sequential scans among them call the
 native runtime (``native``) and keep a numpy or Python twin for the
 tests (a codec's ``native_body=False``).  They are copied rather than
 imported so that this package never loads the JAX package.

@@ -1,8 +1,9 @@
 """The BWTs and their inverses on the host (counterparts of
 ``compressjs_tpu.ops.bwt``).
 
-* The cyclic BWT of bzip2 (`bwtransform2`, `inverse_bwt`): the native
-  runtime's two-stage rotation sort and LF walk, and numpy twins of both
+* The cyclic BWT of bzip2 (`bwtransform2`, `inverse_bwt`, and
+  `inverse_bwt_cyclic` with the JAX signature): the native runtime's
+  two-stage rotation sort and LF walk, and numpy twins of both
   (`cyclic_suffix_array`, prefix doubling; `inverse_bwt_plain`, the LF
   orbit by doubling).  The encoder's ``self_check`` holds the card's
   BWT against `bwtransform2`; the host block decode inverts with
@@ -12,6 +13,9 @@
   the native runtime (``cz_bwt_eof``, ``cz_inverse_bwt_eof``), else the
   numpy twins (`bwtransform_plain` on `suffix_array`,
   `unbwtransform_plain`).
+* `suffixsort`, the reference's suffix array call: above 4096 bytes the
+  native two-stage sorter (``native.suffix_sort``), else
+  `suffix_array`.
 """
 
 from __future__ import annotations
@@ -21,10 +25,11 @@ import numpy as np
 from .. import native
 
 
-def bwtransform2(T, U, n):
+def bwtransform2(T, U, n, alphabet_size=256):
     """Cyclic BWT of T[:n]: U[j] is the last byte of the j-th sorted
     rotation (identical rotations: larger start first).  Fills U[:n]
-    and returns pidx, the sorted position of rotation 0."""
+    and returns pidx, the sorted position of rotation 0.  alphabet_size
+    is the reference's signature."""
     if n <= 1:
         if n == 1:
             U[0] = T[0]
@@ -46,11 +51,12 @@ def bwtransform2_plain(T, U, n):
     return int(np.nonzero(order == 0)[0][0])
 
 
-def cyclic_suffix_array(T, n):
+def cyclic_suffix_array(T, n=None):
     """Rotation start indices of T[:n] in sorted order, identical
     rotations by descending start (as a doubled-string suffix sort
     orders them: the later start is the shorter suffix of T + T)."""
     T = np.asarray(T)[:n]
+    n = T.shape[0]
     if n <= 1:
         return np.zeros(max(n, 0), dtype=np.int32)
     rank = T.astype(np.int64)
@@ -75,6 +81,11 @@ def inverse_bwt(U, pidx):
     """Invert the cyclic BWT of the column U with origPtr pidx: the
     native LF walk."""
     return native.inverse_bwt(U, pidx)
+
+
+def inverse_bwt_cyclic(U, n, pidx):
+    """`inverse_bwt` of U[:n], with the JAX package's signature."""
+    return inverse_bwt(np.asarray(U)[:n], pidx)
 
 
 def inverse_bwt_plain(U, pidx):
@@ -103,11 +114,12 @@ def inverse_bwt_plain(U, pidx):
 NATIVE_MIN = 4096
 
 
-def suffix_array(T, n):
+def suffix_array(T, n=None):
     """Suffix array (int32) of T[:n] terminated by a virtual sentinel
     below every byte (a suffix that is a prefix of another sorts first),
     by prefix doubling."""
     T = np.asarray(T)[:n]
+    n = T.shape[0]
     if n <= 1:
         return np.zeros(max(n, 0), dtype=np.int32)
     rank = T.astype(np.int64)
@@ -129,6 +141,16 @@ def suffix_array(T, n):
             break
         k <<= 1
     return sa.astype(np.int32)
+
+
+def suffixsort(T, SA, n, alphabet_size=256):
+    """Fill SA[:n] with the suffix array of T[:n] (`suffix_array`'s
+    order).  Returns 0; alphabet_size is the reference's signature."""
+    if n > NATIVE_MIN:
+        SA[:n] = native.suffix_sort(np.asarray(T)[:n])
+    else:
+        SA[:n] = suffix_array(T, n)
+    return 0
 
 
 def bwtransform(T, U, A, n, alphabet_size=256):

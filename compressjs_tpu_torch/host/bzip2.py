@@ -18,11 +18,14 @@ the JAX package's.
   block and follows concatenated streams with ``multistream=True``.
 * `decompress_block` decodes the one block whose magic starts at a bit
   position; `table` calls back (bit position, size) for every block.
+* `compress_block_bits` is one block's whole encode after its magic and
+  CRC (`bwt_stage`, then `entropy_stage_bits`).
 
 ``native_body=False`` takes the Python twins of the native scans: the
 encode's MTF + RLE2 (``host.mtf_rle2.mtf_rle2_plain``) and the decode's
 symbol loop (``host.bzip2_decode.decode_symbols_plain``, sequential).
-Format errors raise `Bzip2Error` (a ValueError) with an `Err` code.
+Format errors raise `Bzip2Error` (a ValueError) with an `Err` code and
+the JAX codec's message at each site (``host.bzip2_parse._throw``).
 
 `_block_header` and `_finish_block` are also the host entropy stage of
 the card's encoders (``parallel.pipeline``, ``parallel.mesh``,
@@ -41,65 +44,19 @@ from . import huffman_stages as hs
 from .bits import SQRTPI, WHOLEPI, BitArrayWriter
 from .bwt import bwtransform2, inverse_bwt
 from .bzip2_decode import _decode_one_block, _read_block_header
-from .bzip2_parse import _BitReader, _start
+from .bzip2_parse import Err, _BitReader, _start, _throw
 from .crc32 import crc32_bzip2, stream_crc_combine
 from .mtf_rle2 import mtf_rle2, mtf_rle2_plain
 from .rle1 import rle1_decode, rle1_encode
 from .stream import (ArrayInputStream, BitStream, coerce_input_stream,
                      coerce_output_stream)
+# the JAX module's other public names
+from .bzip2_parse import (  # noqa: F401
+    MAX_HUFCODE_BITS, MAX_SYMBOLS, Bzip2Error)
+from .huffman_stages import GROUP_SIZE  # noqa: F401
+from .stream import EOF  # noqa: F401
 
 PARALLEL_MIN_BYTES = 65536
-
-
-class Bzip2Error(ValueError):
-    def __init__(self, msg, code=None):
-        super().__init__(msg)
-        self.error_code = code
-
-
-# error codes of the reference's Err table
-class Err:
-    OK = 0
-    LAST_BLOCK = -1
-    NOT_BZIP_DATA = -2
-    UNEXPECTED_INPUT_EOF = -3
-    UNEXPECTED_OUTPUT_EOF = -4
-    DATA_ERROR = -5
-    OUT_OF_MEMORY = -6
-    OBSOLETE_INPUT = -7
-    END_OF_BLOCK = -8
-
-
-_MESSAGES = {
-    Err.LAST_BLOCK: 'Bad file checksum',
-    Err.NOT_BZIP_DATA: 'Not bzip data',
-    Err.UNEXPECTED_INPUT_EOF: 'Unexpected input EOF',
-    Err.UNEXPECTED_OUTPUT_EOF: 'Unexpected output EOF',
-    Err.DATA_ERROR: 'Data error',
-    Err.OUT_OF_MEMORY: 'Out of memory',
-    Err.OBSOLETE_INPUT: 'Obsolete (pre 0.9.5) bzip format not supported.',
-}
-
-
-def _throw(code, detail=None):
-    msg = _MESSAGES.get(code, 'unknown error')
-    if detail:
-        msg += ': ' + detail
-    raise Bzip2Error(msg, code)
-
-
-def _as_bzip2_error(e):
-    """The host decoder's ValueError as the codec's `Bzip2Error`."""
-    if isinstance(e, Bzip2Error):
-        return e
-    msg = str(e)
-    if msg.startswith('not bzip2 data'):
-        code = Err.NOT_BZIP_DATA
-    elif msg.startswith('randomised'):
-        code = Err.OBSOLETE_INPUT
-    else:
-        code = Err.DATA_ERROR
-    return Bzip2Error('%s: %s' % (_MESSAGES[code], msg), code)
 
 
 # ===========================================================================
@@ -151,6 +108,12 @@ def _finish_block(block, pidx, syms, count, freq, alphabet_size, used,
     payload = hs.payload_bytes(syms, selectors, length_matrix, code_matrix)
     return _block_header(pidx, used, selectors, list(length_matrix)), \
         payload
+
+
+def compress_block_bits(block):
+    """One RLE1-packed block encoded: everything after its magic and CRC,
+    as 0/1 bits."""
+    return entropy_stage_bits(block, *bwt_stage(block))
 
 
 def bwt_stage(block):
@@ -291,22 +254,6 @@ def _slurp(input_data):
     return np.frombuffer(bytes(input_data), dtype=np.uint8)
 
 
-def _start_checked(r):
-    try:
-        return _start(r)
-    except ValueError as e:
-        raise _as_bzip2_error(e) from None
-
-
-def _decode_block_at(r, dbuf_size, native_body):
-    """The block at r.pos decoded: (bytes, block CRC), or None at the
-    end-of-stream magic."""
-    try:
-        return _decode_one_block(r, dbuf_size, native_body)
-    except ValueError as e:
-        raise _as_bzip2_error(e) from None
-
-
 def _write(stream, out):
     if hasattr(stream, 'write_array'):
         stream.write_array(out)
@@ -333,10 +280,10 @@ def decompress_file(input_data, output=None, multistream=False,
             pass   # the sequential decoder decodes it or names the error
     r = _BitReader(data)
     o = coerce_output_stream(output)
-    dbuf_size = _start_checked(r)
+    dbuf_size = _start(r)
     stream_crc = 0
     while True:
-        res = _decode_block_at(r, dbuf_size, native_body)
+        res = _decode_one_block(r, dbuf_size, native_body)
         if res is not None:
             out, block_crc = res
             _write(o.stream, out)
@@ -350,7 +297,7 @@ def decompress_file(input_data, output=None, multistream=False,
             r.align_byte()
             if r.eof():
                 break
-            dbuf_size = _start_checked(r)
+            dbuf_size = _start(r)
             stream_crc = 0
             continue
         break
@@ -364,9 +311,9 @@ def decompress_block(input_data, pos, output=None):
     data = _slurp(input_data)
     r = _BitReader(data)
     o = coerce_output_stream(output)
-    dbuf_size = _start_checked(r)
+    dbuf_size = _start(r)
     r.seek_bit(pos)
-    res = _decode_block_at(r, dbuf_size, True)
+    res = _decode_one_block(r, dbuf_size)
     if res is not None:
         _write(o.stream, res[0])
     return o.retval
@@ -377,13 +324,10 @@ def table(input_data, callback, multistream=False):
     seek index of `decompress_block`."""
     data = _slurp(input_data)
     r = _BitReader(data)
-    dbuf_size = _start_checked(r)
+    dbuf_size = _start(r)
     while True:
         position = r.tell_bit()
-        try:
-            res = _read_block_header(r, dbuf_size)
-        except ValueError as e:
-            raise _as_bzip2_error(e) from None
+        res = _read_block_header(r, dbuf_size)
         if res is not None:
             dbuf, orig_pointer, _ = res
             callback(position, len(rle1_decode(inverse_bwt(dbuf,
@@ -394,9 +338,10 @@ def table(input_data, callback, multistream=False):
             r.align_byte()
             if r.eof():
                 break
-            if _start_checked(r) != dbuf_size:
-                raise Bzip2Error('the block size changes within a '
-                                 'multistream file', Err.DATA_ERROR)
+            if _start(r) != dbuf_size:
+                # the JAX codec's assert, raised even under -O
+                raise AssertionError("shouldn't change block size within "
+                                     "multistream file")
             continue
         break
 

@@ -10,7 +10,9 @@ reference's own errors, and its acceptance of degenerate blocks the
 native parse refuses (an empty symbol map).  It is the reference's
 semantics on the host, not a stand-in for the card.  `decode_symbols_plain`
 is the Python symbol loop, the plain twin of the native one for the
-tests.  Every format error raises ``ValueError``.
+tests.  Every format error raises ``host.bzip2_parse.Bzip2Error`` (a
+ValueError) with the JAX codec's code and message: a failed symbol
+decode is a bare 'Data error' on both routes, as in the JAX codec.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 from .. import native
 from .bits import SQRTPI, WHOLEPI
 from .bwt import inverse_bwt
-from .bzip2_parse import MAX_SYMBOLS, _parse_block_header
+from .bzip2_parse import MAX_SYMBOLS, Err, _parse_block_header, _throw
 from .crc32 import crc32_bzip2
 from .rle1 import rle1_decode
 
@@ -48,9 +50,12 @@ def decode_symbols(r, sym_to_byte, selectors, groups, dbuf_size):
     past its EOB code."""
     s2b = np.zeros(256, dtype=np.uint8)
     s2b[:len(sym_to_byte)] = sym_to_byte
-    dbuf, r.pos = native.bz2_decode_block(
-        r.data, r.pos, np.array(selectors, dtype=np.uint8),
-        *_group_tables(groups), len(sym_to_byte), s2b, dbuf_size)
+    try:
+        dbuf, r.pos = native.bz2_decode_block(
+            r.data, r.pos, np.array(selectors, dtype=np.uint8),
+            *_group_tables(groups), len(sym_to_byte), s2b, dbuf_size)
+    except ValueError:
+        _throw(Err.DATA_ERROR)
     return dbuf
 
 
@@ -66,7 +71,7 @@ def decode_symbols_plain(r, sym_to_byte, selectors, groups, dbuf_size):
         if not sym_budget:
             sym_budget = native.GROUP_SIZE
             if selector_idx >= len(selectors):
-                raise ValueError('Data error: selectors exhausted')
+                _throw(Err.DATA_ERROR)
             min_len, max_len, limit, base, permute = groups[
                 selectors[selector_idx]]
             selector_idx += 1
@@ -76,11 +81,11 @@ def decode_symbols_plain(r, sym_to_byte, selectors, groups, dbuf_size):
         while j > limit[i]:
             i += 1
             if i > max_len:
-                raise ValueError('Data error: bad Huffman code')
+                _throw(Err.DATA_ERROR)
             j = (j << 1) | read_bits(1)
         j -= base[i]
         if j < 0 or j >= MAX_SYMBOLS:
-            raise ValueError('Data error: bad Huffman code')
+            _throw(Err.DATA_ERROR)
         next_sym = permute[j]
         if next_sym <= 1:  # RUNA / RUNB
             if not run_pos:
@@ -92,13 +97,13 @@ def decode_symbols_plain(r, sym_to_byte, selectors, groups, dbuf_size):
         if run_pos:
             run_pos = 0
             if dbuf_count + t_acc > dbuf_size:
-                raise ValueError('Data error: run past the block')
+                _throw(Err.DATA_ERROR)
             dbuf[dbuf_count:dbuf_count + t_acc] = sym_to_byte[mtf_syms[0]]
             dbuf_count += t_acc
         if next_sym > sym_total:  # EOB
             break
         if dbuf_count >= dbuf_size:
-            raise ValueError('Data error: block overflow')
+            _throw(Err.DATA_ERROR)
         uc = mtf_syms.pop(next_sym - 1)
         mtf_syms.insert(0, uc)
         dbuf[dbuf_count] = sym_to_byte[uc]
@@ -115,7 +120,7 @@ def _read_block_header(r, dbuf_size, native_body=True):
     if h == SQRTPI:
         return None
     if h != WHOLEPI:
-        raise ValueError('not bzip2 data: bad block magic')
+        _throw(Err.NOT_BZIP_DATA)
     target_crc = r.read_bits(32)
     if native_body:
         res = native.bz2_block_full(r.data, r.pos, dbuf_size)
@@ -127,13 +132,13 @@ def _read_block_header(r, dbuf_size, native_body=True):
     symbols = decode_symbols if native_body else decode_symbols_plain
     dbuf = symbols(r, sym_to_byte, selectors, groups, dbuf_size)
     if orig_pointer >= dbuf.shape[0]:
-        raise ValueError('Data error: origPtr past the block')
+        _throw(Err.DATA_ERROR)
     return dbuf, orig_pointer, target_crc
 
 
 def _decode_one_block(r, dbuf_size, native_body=True):
     """Decode the block at r.pos to its bytes: (bytes uint8, block CRC),
-    or None at the end-of-stream magic.  Raises ValueError on a bad
+    or None at the end-of-stream magic.  Raises `Bzip2Error` on a bad
     block CRC."""
     res = _read_block_header(r, dbuf_size, native_body)
     if res is None:
@@ -142,6 +147,6 @@ def _decode_one_block(r, dbuf_size, native_body=True):
     out = rle1_decode(inverse_bwt(dbuf, orig_pointer))
     crc = crc32_bzip2(out)
     if crc != target_crc:
-        raise ValueError('bad block CRC (got %x expected %x)'
-                         % (crc, target_crc))
+        _throw(Err.DATA_ERROR, 'Bad block CRC (got %x expected %x)'
+               % (crc, target_crc))
     return out, target_crc

@@ -2,10 +2,12 @@
 stream and block header parse, the canonical-Huffman decode tables and
 the bit-aligned block-magic scan that yields every candidate block start.
 
-Copies of ``compressjs_tpu.codecs.bzip2`` (`_BitReader`,
-`_parse_block_header`, `_decode_tables`, `_start`) and
-``compressjs_tpu.parallel.decode`` (`_scan_magic`, `_parse_candidates`,
-`_pow2_at_least`); every format error raises ``ValueError``.
+Copies of ``compressjs_tpu.codecs.bzip2`` (`Bzip2Error`, `Err`,
+`_throw`, `_BitReader`, `_parse_block_header`, `_decode_tables`,
+`_start`) and ``compressjs_tpu.parallel.decode`` (`_scan_magic`,
+`_parse_candidates`, `_pow2_at_least`).  Every format error raises
+`Bzip2Error` (a ValueError) with the JAX codec's error code and message
+at the same site.
 """
 
 from __future__ import annotations
@@ -18,6 +20,43 @@ MAX_SYMBOLS = 258
 MAGIC_BYTES = np.array([0x31, 0x41, 0x59, 0x26, 0x53, 0x59], dtype=np.uint8)
 END_MAGIC_BYTES = np.array([0x17, 0x72, 0x45, 0x38, 0x50, 0x90],
                            dtype=np.uint8)
+
+
+class Bzip2Error(ValueError):
+    def __init__(self, msg, code=None):
+        super().__init__(msg)
+        self.error_code = code
+
+
+# error codes of the reference's Err table
+class Err:
+    OK = 0
+    LAST_BLOCK = -1
+    NOT_BZIP_DATA = -2
+    UNEXPECTED_INPUT_EOF = -3
+    UNEXPECTED_OUTPUT_EOF = -4
+    DATA_ERROR = -5
+    OUT_OF_MEMORY = -6
+    OBSOLETE_INPUT = -7
+    END_OF_BLOCK = -8
+
+
+_MESSAGES = {
+    Err.LAST_BLOCK: 'Bad file checksum',
+    Err.NOT_BZIP_DATA: 'Not bzip data',
+    Err.UNEXPECTED_INPUT_EOF: 'Unexpected input EOF',
+    Err.UNEXPECTED_OUTPUT_EOF: 'Unexpected output EOF',
+    Err.DATA_ERROR: 'Data error',
+    Err.OUT_OF_MEMORY: 'Out of memory',
+    Err.OBSOLETE_INPUT: 'Obsolete (pre 0.9.5) bzip format not supported.',
+}
+
+
+def _throw(code, detail=None):
+    msg = _MESSAGES.get(code, 'unknown error')
+    if detail:
+        msg += ': ' + detail
+    raise Bzip2Error(msg, code)
 
 
 class _BitReader:
@@ -62,10 +101,10 @@ def _start(r):
     """Parse the 'BZh#' stream header; returns the block buffer size."""
     b = [r.read_bits(8) for _ in range(4)]
     if bytes(b[:3]) != b'BZh':
-        raise ValueError('not bzip2 data: bad magic')
+        _throw(Err.NOT_BZIP_DATA, 'bad magic')
     level = b[3] - 0x30
     if level < 1 or level > 9:
-        raise ValueError('not bzip2 data: level out of range')
+        _throw(Err.NOT_BZIP_DATA, 'level out of range')
     return 100000 * level
 
 
@@ -75,10 +114,10 @@ def _parse_block_header(r, dbuf_size):
     tables.  Returns (orig_pointer, sym_to_byte, selectors, groups) with
     r.pos at the first symbol bit; groups are `_decode_tables` tuples."""
     if r.read_bits(1):
-        raise ValueError('randomised bzip2 blocks are not supported')
+        _throw(Err.OBSOLETE_INPUT)
     orig_pointer = r.read_bits(24)
     if orig_pointer > dbuf_size:
-        raise ValueError('initial position out of bounds')
+        _throw(Err.DATA_ERROR, 'initial position out of bounds')
 
     t = r.read_bits(16)
     sym_to_byte = []
@@ -92,10 +131,10 @@ def _parse_block_header(r, dbuf_size):
 
     group_count = r.read_bits(3)
     if group_count < 2 or group_count > 6:
-        raise ValueError('bad Huffman group count')
+        _throw(Err.DATA_ERROR)
     n_selectors = r.read_bits(15)
     if n_selectors == 0:
-        raise ValueError('no selectors')
+        _throw(Err.DATA_ERROR)
 
     # unary selector codes, decoded at once from a window of at most
     # group_count + 1 bits each
@@ -110,10 +149,10 @@ def _parse_block_header(r, dbuf_size):
             [bits, np.zeros(max_bits - bits.shape[0], dtype=np.uint8)])
     zeros = np.nonzero(bits == 0)[0][:n_selectors]
     if zeros.shape[0] < n_selectors:
-        raise ValueError('truncated selectors')
+        _throw(Err.DATA_ERROR)
     j_arr = np.diff(zeros, prepend=-1) - 1
     if (j_arr >= group_count).any():
-        raise ValueError('selector out of range')
+        _throw(Err.DATA_ERROR)
     r.pos = start + int(zeros[-1]) + 1
     mtf_lst = list(range(group_count))
     selectors = []
@@ -130,7 +169,7 @@ def _parse_block_header(r, dbuf_size):
         for i in range(sym_count):
             while True:
                 if t < 1 or t > MAX_HUFCODE_BITS:
-                    raise ValueError('bad Huffman code length')
+                    _throw(Err.DATA_ERROR)
                 if not r.read_bits(1):
                     break
                 if not r.read_bits(1):

@@ -19,6 +19,8 @@ from .huffman_allocator import allocate_huffman_code_lengths
 
 MAX_HUFCODE_BITS = native.MAX_HUFCODE_BITS
 GROUP_SIZE = native.GROUP_SIZE
+MIN_GROUPS = 2
+MAX_GROUPS = 6
 
 
 def code_lengths_from_freqs(freq, alphabet_size):
@@ -90,6 +92,13 @@ def group_costs_plain(length_matrix, syms):
         per_sym = np.pad(per_sym, ((0, 0), (0, pad)))
     chunked = per_sym.reshape(n_groups, n_chunks, GROUP_SIZE).sum(axis=2)
     return chunked.T.astype(np.int64)
+
+
+def assign_selectors(length_matrix, syms):
+    """The cheapest table of each 50-symbol chunk (uint8); the first
+    minimum wins, like the reference's strict `<` scan."""
+    return np.argmin(group_costs(length_matrix, syms),
+                     axis=1).astype(np.uint8)
 
 
 def chunk_freqs(syms, selectors, n_groups, alphabet_size):

@@ -2,8 +2,9 @@
 (counterpart of ``compressjs_tpu.ops.mtf``): the list starts as the
 block's used bytes in order and each coded byte moves to its front.
 
-Above 2048 symbols the native runtime runs the loop (``cz_mtf_encode``,
-``cz_mtf_decode``); below, and in the tests, its Python twin does.
+`used_alphabet` is that starting list.  Above 2048 symbols the native
+runtime runs the loop (``cz_mtf_encode``, ``cz_mtf_decode``); below,
+and in the tests, its Python twin does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,14 @@ import numpy as np
 from .. import native
 
 NATIVE_MIN = 2048
+
+
+def used_alphabet(block):
+    """The sorted byte values present in `block` (uint8): bzip2's symbol
+    map and the list MTF starts from."""
+    present = np.zeros(256, dtype=bool)
+    present[np.asarray(block)] = True
+    return np.flatnonzero(present).astype(np.uint8)
 
 
 def mtf_encode(data, alphabet):

@@ -116,12 +116,16 @@ def _build():
 
 
 def _bind(lib):
+    for name in ('cz_suffix_sort', 'cz_suffix_sort_sais'):
+        getattr(lib, name).argtypes = [_p_u8, _p_i64, _i64]
+        getattr(lib, name).restype = None
     lib.cz_huff_code_lengths.argtypes = [_p_i64, _i32, _i32, _p_u8]
     lib.cz_huff_code_lengths.restype = None
     lib.cz_selector_mtf.argtypes = [_p_u8, _i64, _i32, _p_u8]
     lib.cz_selector_mtf.restype = _i64
-    lib.cz_bwt_cyclic.argtypes = [_p_u8, _p_u8, _i64]
-    lib.cz_bwt_cyclic.restype = _i64
+    for name in ('cz_bwt_cyclic', 'cz_bwt_cyclic_ref'):
+        getattr(lib, name).argtypes = [_p_u8, _p_u8, _i64]
+        getattr(lib, name).restype = _i64
     lib.cz_mtf_rle2.argtypes = [_p_u8, _i64, _p_u8, _i32, _p_u16, _p_i64]
     lib.cz_mtf_rle2.restype = _i64
     lib.cz_group_costs.argtypes = [_p_u16, _i64, _p_u8, _i32, _i32, _p_i64]
@@ -213,6 +217,17 @@ def lib():
         return _lib
 
 
+def available():
+    """Whether the runtime builds and loads on this host (built by this
+    call if it was not).  Unlike the JAX package's, it reads no
+    environment variable: the port has no numpy fallback to turn to."""
+    try:
+        lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _u8(a):
     return np.ascontiguousarray(a, dtype=np.uint8)
 
@@ -250,14 +265,18 @@ def mtf_rle2(U, alphabet):
     return syms[:count], freq
 
 
-def huff_code_lengths(freq):
-    """Length-limited (20-bit) canonical Huffman code lengths of `freq`."""
+def huff_code_lengths(freq, maxlen=MAX_HUFCODE_BITS):
+    """Canonical Huffman code lengths of `freq`, limited to `maxlen`
+    bits."""
     freq = np.ascontiguousarray(freq, dtype=np.int64)
     n = freq.shape[0]
     if not 1 <= n <= 512:
         raise ValueError('huff_code_lengths: %d symbols' % n)
+    if maxlen < (n - 1).bit_length():
+        raise ValueError('huff_code_lengths: %d symbols in codes of at '
+                         'most %d bits' % (n, maxlen))
     lengths = np.zeros(n, dtype=np.uint8)
-    lib().cz_huff_code_lengths(freq, n, MAX_HUFCODE_BITS, lengths)
+    lib().cz_huff_code_lengths(freq, n, maxlen, lengths)
     return lengths
 
 
@@ -324,14 +343,47 @@ def selector_mtf(selectors, n_groups):
     return out[:count]
 
 
+def _sort_input(T, what):
+    """T as uint8, of a size the sorts' int32 indices hold (a doubled
+    block below 2^31 - 2)."""
+    T = _u8(T)
+    if not 1 <= T.shape[0] < (1 << 30) - 1:
+        raise ValueError('%s: block of %d bytes' % (what, T.shape[0]))
+    return T
+
+
+def suffix_sort(T):
+    """Suffix array (int64) of T, a virtual sentinel below every byte
+    ending it: the two-stage sorter."""
+    T = _sort_input(T, 'suffix_sort')
+    SA = np.empty(T.shape[0], dtype=np.int64)
+    lib().cz_suffix_sort(T, SA, T.shape[0])
+    return SA
+
+
+def suffix_sort_sais(T):
+    """`suffix_sort` by plain SA-IS: the reference the two-stage sorter
+    is held against."""
+    T = _sort_input(T, 'suffix_sort_sais')
+    SA = np.empty(T.shape[0], dtype=np.int64)
+    lib().cz_suffix_sort_sais(T, SA, T.shape[0])
+    return SA
+
+
 def bwt_cyclic(T):
     """Cyclic BWT of T (ties: larger start first): (U uint8, pidx)."""
-    T = _u8(T)
-    n = T.shape[0]
-    if not 1 <= n < (1 << 30) - 1:
-        raise ValueError('bwt_cyclic: block of %d bytes' % n)
-    U = np.empty(n, dtype=np.uint8)
-    pidx = lib().cz_bwt_cyclic(T, U, n)
+    T = _sort_input(T, 'bwt_cyclic')
+    U = np.empty(T.shape[0], dtype=np.uint8)
+    pidx = lib().cz_bwt_cyclic(T, U, T.shape[0])
+    return U, int(pidx)
+
+
+def bwt_cyclic_ref(T):
+    """`bwt_cyclic` by SA-IS on the doubled string: the reference the
+    direct rotation sort is held against."""
+    T = _sort_input(T, 'bwt_cyclic_ref')
+    U = np.empty(T.shape[0], dtype=np.uint8)
+    pidx = lib().cz_bwt_cyclic_ref(T, U, T.shape[0])
     return U, int(pidx)
 
 

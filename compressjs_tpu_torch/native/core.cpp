@@ -12,9 +12,10 @@
 // deferred-summation models and the composite models over it (NoModelRC,
 // LogDistModel), the adaptive Vitter Huffman coder (vhuff), DMC's Markov
 // model and MTF-list model (dmc), PPM's context models (ppm) and LZP3's
-// window (lzp3), and the exports cz_huff_code_lengths, cz_selector_mtf,
-// cz_bwt_cyclic, cz_mtf_rle2, cz_group_costs, cz_chunk_freqs,
-// cz_payload_pack, cz_rle1_encode, cz_bz2_decode_block, cz_bz2_block_full,
+// window (lzp3), and the exports cz_suffix_sort, cz_suffix_sort_sais,
+// cz_huff_code_lengths, cz_selector_mtf, cz_bwt_cyclic, cz_bwt_cyclic_ref,
+// cz_mtf_rle2, cz_group_costs, cz_chunk_freqs, cz_payload_pack,
+// cz_rle1_encode, cz_bz2_decode_block, cz_bz2_block_full,
 // cz_inverse_bwt, cz_rle1_decode, cz_bwt_eof, cz_inverse_bwt_eof,
 // cz_mtf_encode, cz_mtf_decode, cz_huff_encode/_decode, cz_ctx1_*,
 // cz_simple_*, cz_order0_mtf_*, cz_order0_defsum_*, cz_dmc_*, cz_ppm_*,
@@ -169,6 +170,19 @@ void sais_core(const CharT* T, IdxT* SA, IdxT n, IdxT K) {
     SA[--bkt[T[p]]] = p;
   }
   induce<CharT, IdxT>(T, SA, n, K, cnt.data(), stype, bkt);
+}
+
+// Plain SA-IS suffix sort (kept as the differential-test reference for
+// the two-stage sorter below, and exported as cz_suffix_sort_sais).
+void suffix_sort32_sais(const uint8_t* T, int32_t* SA, int32_t n) {
+  // append a virtual sentinel by shifting the alphabet up by one
+  std::vector<uint16_t> T2(n + 1);
+  for (int32_t i = 0; i < n; i++) T2[i] = (uint16_t)(T[i] + 1);
+  T2[n] = 0;
+  std::vector<int32_t> SA2(n + 1);
+  sais_core<uint16_t, int32_t>(T2.data(), SA2.data(), n + 1, 257);
+  // SA2[0] is the sentinel suffix; drop it
+  std::memcpy(SA, SA2.data() + 1, sizeof(int32_t) * n);
 }
 
 // ---------------------------------------------------------------------------
@@ -796,6 +810,16 @@ void allocate(int64_t* a, int32_t n, int32_t maximum_length) {
 
 extern "C" {
 
+// Suffix array of T[0..n-1] (EOF-terminated semantics: shorter suffixes
+// that are prefixes sort first — matching a virtual sentinel < all).
+void cz_suffix_sort(const uint8_t* T, int64_t* SA, int64_t n) {
+  if (n <= 0 || n >= (int64_t)INT32_MAX - 1) return;  // Python layer guards
+  if (n == 1) { SA[0] = 0; return; }
+  std::vector<int32_t> SA32(n);
+  suffix_sort32(T, SA32.data(), (int32_t)n);
+  for (int64_t i = 0; i < n; i++) SA[i] = SA32[i];
+}
+
 // Length-limited canonical Huffman code lengths for `freq[0..n)`
 // (reference StaticHuffman ctor, Bzip2.js:551-579): sort (freq<<9|sym),
 // allocate in place, scatter lengths back by symbol.
@@ -847,6 +871,37 @@ int64_t cz_bwt_cyclic(const uint8_t* T, uint8_t* U, int64_t n) {
     int32_t s = SA[r];
     if (s == 0) pidx = r;
     U[r] = T[s == 0 ? n - 1 : s - 1];
+  }
+  return pidx;
+}
+
+// Plain SA-IS path, kept as the differential-test reference for the
+// two-stage sorter that cz_suffix_sort dispatches to.
+void cz_suffix_sort_sais(const uint8_t* T, int64_t* SA, int64_t n) {
+  if (n <= 0 || n >= (int64_t)INT32_MAX - 1) return;
+  if (n == 1) { SA[0] = 0; return; }
+  std::vector<int32_t> SA32(n);
+  suffix_sort32_sais(T, SA32.data(), (int32_t)n);
+  for (int64_t i = 0; i < n; i++) SA[i] = SA32[i];
+}
+
+// Doubled-string construction of the same transform, kept as the
+// differential-test reference for the direct rotation sort above.
+int64_t cz_bwt_cyclic_ref(const uint8_t* T, uint8_t* U, int64_t n) {
+  if (n <= 0 || 2 * n >= (int64_t)INT32_MAX - 1) return 0;
+  if (n == 1) { U[0] = T[0]; return 0; }
+  std::vector<uint8_t> TT(2 * n);
+  std::memcpy(TT.data(), T, n);
+  std::memcpy(TT.data() + n, T, n);
+  std::vector<int32_t> SA(2 * n);
+  suffix_sort32_sais(TT.data(), SA.data(), (int32_t)(2 * n));
+  int64_t j = 0, pidx = 0;
+  for (int64_t i = 0; i < 2 * n; i++) {
+    int64_t s = SA[i];
+    if (s < n) {
+      if (s == 0) pidx = j;
+      U[j++] = T[(s + n - 1) % n];
+    }
   }
   return pidx;
 }

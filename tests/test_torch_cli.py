@@ -167,6 +167,27 @@ def test_corrupt_input_clean_error(port, argv, payload):
     assert 'Traceback' not in err
 
 
+@pytest.mark.parametrize('corrupt', ['block_magic', 'stream_magic',
+                                     'truncated', 'payload_byte'])
+def test_corrupt_bzip2_stderr_matches_jax_cli(port, jax_cli, tmp_path,
+                                              corrupt):
+    stream = bytearray(bz2.compress(_text(5000, 3), 9))
+    if corrupt == 'block_magic':
+        stream[4] ^= 0xFF
+    elif corrupt == 'stream_magic':
+        stream[0] = ord('X')
+    elif corrupt == 'truncated':
+        stream = stream[:len(stream) // 2]
+    else:
+        stream[len(stream) // 3] ^= 0x10
+    src = tmp_path / 'bad.bz2'
+    src.write_bytes(bytes(stream))
+    argv = ['-d', '-t', 'bzip2', str(src), str(tmp_path / 'out')]
+    want = jax_cli(argv)
+    assert want[0] == 1 and want[2].startswith('error: ')
+    assert port(argv) == want
+
+
 def test_corrupt_input_keeps_destination(port, tmp_path):
     dest = tmp_path / 'out'
     dest.write_bytes(b'keep me')

@@ -239,6 +239,7 @@ def test_bzip2_error_on_corrupt_stream(case):
         cz.Bzip2.decompress_file(bytes(stream))
     assert isinstance(got.value, ValueError)
     assert got.value.error_code == want.value.error_code
+    assert str(got.value) == str(want.value)
     assert pbz.Err.DATA_ERROR == jbz.Err.DATA_ERROR
 
 

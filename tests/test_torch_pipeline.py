@@ -211,6 +211,12 @@ def test_import_isolation():
             'import compressjs_tpu_torch.host.context1_model;'
             'import compressjs_tpu_torch.host.deflate_distance_model;'
             'import compressjs_tpu_torch.host.dummy_range_coder;'
+            'import compressjs_tpu_torch.host.freeze;'
+            'import compressjs_tpu_torch.coders;'
+            'import compressjs_tpu_torch.models;'
+            'import compressjs_tpu_torch.utils;'
+            'compressjs_tpu_torch.utils.CRC32().update_crc_run(7, 1000);'
+            'compressjs_tpu_torch.BWT.suffixsort(bytearray(5000), [0] * 5000, 5000);'
             '[getattr(compressjs_tpu_torch, n) for n in'
             ' compressjs_tpu_torch.__all__];'
             'compressjs_tpu_torch.bwtcl_compress_device(bytes(range(256)) * 40,'
