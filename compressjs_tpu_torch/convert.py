@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .tracer import stage_timer
+
 
 def block_inputs(block_u8, remap_i32, eob, device):
     """The numpy arrays ``compressjs_tpu.ops.device_entropy.
@@ -15,6 +17,7 @@ def block_inputs(block_u8, remap_i32, eob, device):
     tensor, remap int64 tensor, eob int), on `device`."""
     block = torch.from_numpy(np.ascontiguousarray(block_u8, dtype=np.uint8))
     remap = torch.from_numpy(np.asarray(remap_i32, dtype=np.int64))
+    stage_timer().add('host_syncs', 2)  # uploads from pageable memory
     return block.to(device), remap.to(device), int(eob)
 
 
@@ -23,6 +26,7 @@ def decode_tables(limits, bases, perms, mins, device):
     package's arrays through ``np.asarray``) as this package's int32
     tensors on `device`, in the same order: a decoder has no weights, so
     these are what both packages are fed."""
+    stage_timer().add('host_syncs', 4)  # uploads from pageable memory
     return tuple(torch.from_numpy(np.array(x, dtype=np.int32))
                  .to(device) for x in (limits, bases, perms, mins))
 

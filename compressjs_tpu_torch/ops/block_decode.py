@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from ..tracer import stage_timer
 
 # MTF chunk length (fixed in csrc/mtf_undo.cu).  An index outside the list
 # writes a 0 that the composition of chunk maps does not carry, so the
@@ -205,6 +206,7 @@ def _ranks_to(succ, u):
     succ = succ.clone()
     succ[u] = u
     rank = torch.ones(n, dtype=torch.int64, device=succ.device)
+    stage_timer().add('host_syncs')     # a host scalar written to the card
     rank[u] = 0
     for _ in range(max(1, (n - 1).bit_length())):
         rank = rank + rank[succ]
@@ -260,6 +262,8 @@ def inverse_bwt_eof_block(T, n, pidx):
     T = T[:n]
     lf, order = _lf_mapping(T.to(torch.int64))
     f = (lf + (lf < pidx).to(torch.int64)).clamp_(max=n - 1)
+    if not torch.is_tensor(pidx):
+        stage_timer().add('host_syncs')     # pidx uploaded
     u = order[torch.as_tensor(pidx, device=dev).view(1) - 1]
     rank = _ranks_to(f, u)
     out = torch.zeros(n + 1, dtype=T.dtype, device=dev)
@@ -283,6 +287,7 @@ def rle1_decode_dev(block, out_cap, count):
     b = block.to(torch.int64)
     valid = torch.arange(n, device=dev) < count
     eq = torch.cat([b.new_zeros(1, dtype=torch.bool), b[1:] == b[:-1]])
+    stage_timer().add('host_syncs')     # the tables uploaded
     tables = torch.tensor([_F_NE, _F_EQ], dtype=torch.int64, device=dev)
     states = _scan_compose(tables[eq.to(torch.int64)],
                            earlier_first=True)[:, 1]
@@ -291,6 +296,7 @@ def rle1_decode_dev(block, out_cap, count):
     out_cnt = torch.where(is_count, b, valid.to(torch.int64))
     vals = torch.where(is_count, prev, b)
     if out_cap is None:
+        stage_timer().add('host_syncs')
         out_cap = int(out_cnt.sum())
     iat, total = _producers(out_cnt, out_cap)
     out = torch.where(torch.arange(out_cap, device=dev) < total, vals[iat],

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from ..tracer import stage_timer, staged
 
 CHUNK_LEN = 512          # MTF chunk length (fixed in csrc/mtf_scan.cu)
 TILE_CHUNKS = 16         # chunks per tile of the start-list scan (the same)
@@ -47,6 +48,7 @@ def _seg_start(diff):
 def _tied_count(diff):
     """Number of elements in groups of size > 1, from sorted diff flags."""
     nxt = torch.cat([diff[1:], diff.new_ones(1)])
+    stage_timer().add('host_syncs')
     return diff.shape[0] - int((diff & nxt).sum())
 
 
@@ -54,6 +56,7 @@ def _diff_flags(keys_sorted):
     """True where a sorted slot starts a new group of equal keys."""
     n = keys_sorted[0].shape[0]
     diff = torch.zeros(n, dtype=torch.bool, device=keys_sorted[0].device)
+    stage_timer().add('host_syncs')     # a host scalar written to the card
     diff[0] = True
     for k in keys_sorted:
         diff[1:] |= k[1:] != k[:-1]
@@ -98,6 +101,7 @@ def _quad_double(rank, order, tied, n, k, shift):
     in [0, 2^21) that orders as the rank does (the EOF-terminated sort's
     is rank + 1, and 0 past the end).  Returns (rank, order, tied)."""
     while tied > 0 and k < n:
+        stage_timer().add('sort_rounds')
         r2 = shift(rank, k)
         r3 = shift(rank, 2 * k)
         r4 = shift(rank, 3 * k)
@@ -182,6 +186,7 @@ def bwt_eof_block(block, n):
     return U, pidx + 1
 
 
+@staged('ops.bwt_block')
 def bwt_block(block, n):
     """Cyclic BWT of one block: (U uint8, pidx)."""
     order = cyclic_suffix_sort(block, n)
@@ -224,6 +229,7 @@ def bwt_block_batch(blocks, n):
     rank -= base
     k = 16
     while tied > 0 and k < n:
+        stage_timer().add('sort_rounds')
         packed = (row << 40) | (rank << 20) | roll(rank, k)
         low = (roll(rank, 2 * k) << 20) | roll(rank, 3 * k)
         order = _lex_order([packed, low])
@@ -318,6 +324,7 @@ def mtf_encode_plain(data, n):
     return mtf_scan_plain(d, _chunk_start_lists(_pad_chunks(d, n)))
 
 
+@staged('ops.mtf_encode')
 def mtf_encode(data, n):
     """MTF indices (int32) of data[:n] (dense symbols < 256) with the
     identity initial list, in chunks of CHUNK_LEN symbols that each start
@@ -398,6 +405,7 @@ def rle2_encode(mtf_seq, n, eob):
     sym = torch.where(s != 0, s + 1, ((run_len[iat] + 1) >> digit) & 1)
     syms = torch.where(out_idx < total, sym, eob)
     count = total + 1
+    stage_timer().add('host_syncs', 2)  # bincount reads back min and max
     freq = torch.bincount(syms, minlength=260)[:260].to(torch.int32)
     freq[eob] -= (n + 1 - count).to(torch.int32)
     return syms.to(torch.int16), count, freq

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from ..tracer import staged
 
 
 def _check_window(a, b, blo, bhi):
@@ -39,6 +40,7 @@ def compose_windowed_plain(a, b, blo, bhi):
     return torch.gather(a_pad, 1, idx)
 
 
+@staged('ops.compose_windowed')
 def compose_windowed(a, b, blo, bhi):
     """c[g, p] = a[g, b[g, p]] for jumps b - p in [blo, bhi] (clipped
     into the window, read clamped at the tail).  a, b: (G, cap) int32.

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from ..tracer import stage_timer, staged
 from .block_kernels import encode_block_core
 from ..host.huffman_allocator import allocate_huffman_code_lengths
 
@@ -97,6 +98,7 @@ def alloc_lengths(arrs, ms):
                                      MAX_LEN,
                                      _cuda.stream_handle(arrs.device)),
                 'alloc_lengths')
+    stage_timer().add('host_syncs')
     _raise_if_flagged(flags, 'alloc_lengths')
     return out
 
@@ -191,6 +193,7 @@ def chunk_hist_dev(syms, count, n_chunks):
     idx = torch.arange(n, device=syms.device)
     flat = (idx // GROUP_SIZE) * N + syms.to(torch.int64)
     flat = torch.where(idx < count, flat, n_chunks * N)
+    stage_timer().add('host_syncs', 2)  # bincount reads back min and max
     hist = torch.bincount(flat, minlength=n_chunks * N + 1)
     return hist[:n_chunks * N].view(n_chunks, N).to(torch.int32)
 
@@ -232,6 +235,7 @@ def _target_groups(count):
         (count >= 2400)
 
 
+@staged('ops.optimize_groups_dev')
 def optimize_groups_dev(syms, count, n_chunks, freq, m):
     """Coding tables and selectors for one block: returns (length matrix
     (G, N) int32, n_groups, selectors (n_chunks,) int64, code matrix
@@ -289,6 +293,7 @@ def optimize_groups_dev(syms, count, n_chunks, freq, m):
         costs = _costs_from_hist(hist_f, lens, active)
         sel = torch.argmin(costs, 1)
         chosen = costs.gather(1, sel[:, None])[:, 0]
+        stage_timer().add('host_syncs')
         cost, bad = torch.stack([torch.where(valid_chunk, chosen, 0).sum(),
                                  err[0].to(torch.int64)]).tolist()
         if bad:
@@ -304,6 +309,7 @@ def optimize_groups_dev(syms, count, n_chunks, freq, m):
 # ---------------------------------------------------------------------------
 # payload packing
 
+@staged('ops.payload_pack_words_dev')
 def payload_pack_words_dev(syms, count, selectors, lens, codes):
     """Huffman payload as packed big-endian bytes: (uint8[ceil(bits/8)],
     total_bits).
@@ -324,6 +330,7 @@ def payload_pack_words_dev(syms, count, selectors, lens, codes):
     ln = torch.where(valid, pv >> 20, 0)
     cd = torch.where(valid, pv & 0xFFFFF, 0)
     offsets = torch.cumsum(ln, 0) - ln
+    stage_timer().add('host_syncs')
     total = int(ln.sum())
     wi = offsets >> 5
     bo = offsets & 31
@@ -349,6 +356,7 @@ def encode_block_full(block, n, remap, eob):
     Returns (pidx, payload bytes, total_bits, lens (G, N), n_groups,
     selectors, count, freq)."""
     pidx, syms, count, freq = encode_block_core(block, n, remap, eob)
+    stage_timer().add('host_syncs')
     count = int(count)
     n_chunks = -(-(n + 1) // GROUP_SIZE)
     lens, g, sel, codes = optimize_groups_dev(syms, count, n_chunks, freq,

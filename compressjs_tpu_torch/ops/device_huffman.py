@@ -30,6 +30,7 @@ from . import _cuda
 from .block_decode import (inverse_bwt_block_masked, mtf_decode,
                            rle1_decode_dev, rle2_decode)
 from .compose import compose_windowed
+from ..tracer import stage_timer, staged
 
 MAX_CODE_BITS = 20     # bzip2 code lengths are 1..20
 GROUP_SIZE = 50
@@ -188,6 +189,7 @@ def selector_chase(F, sel, sub):
     return starts
 
 
+@staged('ops.huffman_walk_dev')
 def huffman_walk_dev(payload_bytes, bit0, nbits_cap, s_cap, limits, bases,
                      permutes, min_lens, selectors, n_selectors, eob):
     """Decode a bzip2 block's Huffman payload into its symbol stream.
@@ -254,6 +256,8 @@ def block_bytes(U, cap, total, pidx, out_cap=None):
     be a 0-dim tensor) with origPtr pidx: (out uint8[out_cap], count);
     out_cap=None sizes the output to the exact byte count (one host
     sync)."""
+    if not torch.is_tensor(pidx):
+        stage_timer().add('host_syncs')     # pidx uploaded
     t0 = torch.as_tensor(pidx, device=U.device).clamp(max=total - 1)
     packed = inverse_bwt_block_masked(U, cap, total, t0)
     return rle1_decode_dev(packed, out_cap, total)

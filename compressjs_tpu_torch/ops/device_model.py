@@ -31,6 +31,7 @@ import torch
 
 from . import _cuda
 from . import device_coder as dc
+from ..tracer import stage_timer, staged
 
 M32 = dc.M32
 ESC_MASK = 0x0000FFFF
@@ -242,6 +243,7 @@ def fenwick_encode_streams(symbols, step_valid, Ns, max_n, max_prob,
         max_prob, increment, sy.data_ptr(), lt.data_ptr(), tot.data_ptr(),
         vout.data_ptr(), err.data_ptr(), _cuda.stream_handle(dev)),
         'fenwick_encode')
+    stage_timer().add('host_syncs')
     _raise_flag(int(err), 'fenwick_encode_streams')
     return sy, lt, tot, vout
 
@@ -300,6 +302,7 @@ def fenwick_code_streams(symbols, step_valid, Ns, max_n, max_prob,
         max_prob, increment, init.data_ptr(), tokens.data_ptr(), cap,
         tok_n.data_ptr(), nbytes.data_ptr(), err.data_ptr(),
         _cuda.stream_handle(dev)), 'fenwick_code')
+    stage_timer().add('host_syncs')
     _raise_flag(int(err), 'fenwick_code_streams')
     return tokens, tok_n, nbytes
 
@@ -374,6 +377,7 @@ def fenwick_decode_streams_plain(payload, coder_state, Ns, max_n, max_prob,
     return out.to(torch.int32), state
 
 
+@staged('ops.fenwick_decode_streams')
 def fenwick_decode_streams(payload, coder_state, Ns, max_n, max_prob,
                            increment, step_valid):
     """Decode (L, T) symbol streams through per-lane Fenwick models.
@@ -410,6 +414,7 @@ def fenwick_decode_streams(payload, coder_state, Ns, max_n, max_prob,
         pay.data_ptr(), B, state.data_ptr(), Ns.data_ptr(),
         valid.data_ptr(), L, T, max_n, max_prob, increment, out.data_ptr(),
         err.data_ptr(), _cuda.stream_handle(dev)), 'fenwick_decode')
+    stage_timer().add('host_syncs')
     if int(err):
         raise ValueError('fenwick_decode_streams: a lane size outside '
                          '[2, max_n]')

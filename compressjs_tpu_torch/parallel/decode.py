@@ -47,6 +47,7 @@ from ..ops.device_huffman import MAX_CODE_BITS, block_bytes, bwt_column, \
     huffman_walk_dev, tables_for_device
 from .mesh import make_mesh, sharded_ragged_inverse_bwt
 from .pipeline import _as_u8, _device
+from .profiling import stage_timer
 
 # The most bits a block takes from its magic to the end of its EOB code.
 # The header: magic 48, block CRC 32, randomised flag 1, origPtr 24,
@@ -89,6 +90,8 @@ def _walk_inputs(data, pos, bound, dbuf_size, device):
     bit0 = sym_start & 7
     nbits_cap = _pow2_at_least(bound - sym_start + 1, 1 << 12)
     s_cap = _pow2_at_least(len(selectors), 64)
+    # the payload, selectors and symbol map (the tables count their own)
+    stage_timer().add('host_syncs', 3)  # uploads from pageable memory
     payload = torch.from_numpy(np.array(
         data[byte0:byte0 + ((nbits_cap + bit0 + 7) >> 3) + 8])).to(device)
     tables = decode_tables(*tables_for_device(groups, len(groups)), device)
@@ -107,12 +110,16 @@ def _device_entropy_launch(data, pos, bound, dbuf_size, device):
     """Launch the walk, RLE2 undo, MTF undo and alphabet map of the
     candidate block at bit `pos` on the device.  Returns unsynchronised
     device handles, or None when the header does not parse."""
-    h = _walk_inputs(data, pos, bound, dbuf_size, device)
+    timer = stage_timer()
+    with timer.stage('decode.parse'):
+        h = _walk_inputs(data, pos, bound, dbuf_size, device)
     if h is None:
         return None
-    syms, h['count'], h['end_bit'] = huffman_walk_dev(*h.pop('walk'))
-    h['U'], h['total'] = bwt_column(syms, h['count'], dbuf_size,
-                                    h.pop('sym_to_byte'))
+    with timer.stage('decode.launch'):
+        syms, h['count'], h['end_bit'] = huffman_walk_dev(*h.pop('walk'))
+        h['U'], h['total'] = bwt_column(syms, h['count'], dbuf_size,
+                                        h.pop('sym_to_byte'))
+    timer.add('candidates_launched')
     return h
 
 
@@ -122,8 +129,11 @@ def _device_entropy_collect(h, bound, dbuf_size):
     None."""
     if h is None:
         return None
-    end_bit, count, total = torch.stack(
-        [h['end_bit'], h['count'], h['total']]).tolist()
+    timer = stage_timer()
+    with timer.stage('decode.wait'):
+        end_bit, count, total = torch.stack(
+            [h['end_bit'], h['count'], h['total']]).tolist()
+    timer.add('host_syncs')
     end_bit += h['byte0'] * 8
     if count == 0 or end_bit > bound:
         return None
@@ -157,9 +167,11 @@ def decompress_file_device(data, output=None, device='cuda'):
     bytes, or writes them to `output` (a binary file object) and returns
     `output`.  Raises ValueError on a stream that does not decode (bad
     header, broken block chain, block or stream CRC mismatch)."""
-    device = _device(device, 'decompress_file_device')
-    data = _as_u8(data)
-    parsed = _parse_candidates(data)
+    timer = stage_timer()
+    with timer.stage('decode.scan'):
+        device = _device(device, 'decompress_file_device')
+        data = _as_u8(data)
+        parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)
     dbuf_size, first_block_pos, candidates, end_hits = parsed
@@ -170,10 +182,19 @@ def decompress_file_device(data, output=None, device='cuda'):
     pieces = []
     for U, orig_ptr, target_crc, _ in chain:
         n = U.shape[0]
-        out, _ = block_bytes(U, n, n, orig_ptr)
-        pieces.append(_checked(out.cpu().numpy(), target_crc))
-    _check_stream_crc(data, end, [res[2] for res in chain])
-    return _emit(b''.join(pieces), output)
+        with timer.stage('decode.inverse'):
+            out, _ = block_bytes(U, n, n, orig_ptr)
+        with timer.stage('decode.download'):
+            out = out.cpu().numpy()
+        timer.add('host_syncs')
+        with timer.stage('decode.crc'):
+            pieces.append(_checked(out, target_crc))
+    with timer.stage('decode.crc'):
+        _check_stream_crc(data, end, [res[2] for res in chain])
+    with timer.stage('decode.join'):
+        result = _emit(b''.join(pieces), output)
+    timer.report()
+    return result
 
 
 def _decode_window(data, cands, end, dbuf_size, device):
@@ -189,6 +210,7 @@ def _decode_window(data, cands, end, dbuf_size, device):
     # header parsing overlaps the device's walks
     launched = [_device_entropy_launch(data, p, b, dbuf_size, device)
                 for p, b in zip(cands, bounds)]
+    timer = stage_timer()
     by_pos = {}
     for p, b, h in zip(cands, bounds, launched):
         res = _device_entropy_collect(h, b, dbuf_size)
@@ -196,11 +218,13 @@ def _decode_window(data, cands, end, dbuf_size, device):
         if res is None and retry > b:
             # a false magic inside a payload makes the first bound too
             # tight for the true block before it
-            res = _device_entropy_collect(
-                _device_entropy_launch(data, p, retry, dbuf_size, device),
-                retry, dbuf_size)
+            with timer.stage('decode.retry'):
+                res = _device_entropy_collect(
+                    _device_entropy_launch(data, p, retry, dbuf_size,
+                                           device), retry, dbuf_size)
         if res is not None and res[3] > p:
             by_pos[p] = res
+            timer.add('candidates_accepted')
     return by_pos
 
 

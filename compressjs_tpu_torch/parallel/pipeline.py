@@ -176,69 +176,91 @@ class DeviceBzip2Encoder:
         self.batch = batch
         self._pool = None
 
-    def _device_stage(self, block, alphabet_size, remap):
+    def _device_stage(self, block, alphabet_size, remap, index=None):
         """One block's device work, downloaded: ('full', pidx, payload,
         bits, lens, n_groups, sel, count), ('core', pidx, syms, count,
         freq) or ('hybrid', pidx, U).  While COMPRESSJS_TPU_BZ2_REF_TIES
         is set, 'full' runs the short tail block as 'core', so that its
         Huffman stage takes the reference's grouping on the host (the
         device group optimisation has no such switch, in either package;
-        the JAX encoder sends the tail to the host)."""
-        n = block.shape[0]
-        blk, remap_t, eob = block_inputs(block, remap, alphabet_size + 1,
-                                         self.device)
-        mode = self.mode
-        if mode == 'full' and n != self.block_size and _ref_ties_default():
-            mode = 'core'
-        if mode == 'full':
-            pidx, payload, bits, lens, g, sel, count, _ = encode_block_full(
-                blk, n, remap_t, eob)
-            return ('full', int(pidx), payload.cpu().numpy(), bits,
-                    lens.cpu().numpy(), g, sel.cpu().numpy(), count)
-        if mode == 'core':
-            pidx, syms, count, freq = bk.encode_block_core(blk, n, remap_t,
-                                                           eob)
-            count = int(count)
-            return ('core', int(pidx),
-                    syms[:count].cpu().numpy().astype(np.uint16), count,
-                    freq.cpu().numpy().astype(np.int64))
-        U, pidx = bk.bwt_block(blk, n)
-        return ('hybrid', int(pidx), U.cpu().numpy())
+        the JAX encoder sends the tail to the host).  `index`, the
+        block's place in the stream, labels its stages."""
+        timer = stage_timer()
+        with timer.stage('encode.device', index):
+            n = block.shape[0]
+            with timer.stage('encode.upload', index):
+                blk, remap_t, eob = block_inputs(block, remap,
+                                                 alphabet_size + 1,
+                                                 self.device)
+            mode = self.mode
+            if (mode == 'full' and n != self.block_size
+                    and _ref_ties_default()):
+                mode = 'core'
+            if mode == 'full':
+                pidx, payload, bits, lens, g, sel, count, _ = \
+                    encode_block_full(blk, n, remap_t, eob)
+                with timer.stage('encode.wait', index):
+                    res = ('full', int(pidx), payload.cpu().numpy(), bits,
+                           lens.cpu().numpy(), g, sel.cpu().numpy(), count)
+                timer.add('host_syncs', 4)
+            elif mode == 'core':
+                pidx, syms, count, freq = bk.encode_block_core(
+                    blk, n, remap_t, eob)
+                with timer.stage('encode.wait', index):
+                    count = int(count)
+                    res = ('core', int(pidx),
+                           syms[:count].cpu().numpy().astype(np.uint16),
+                           count, freq.cpu().numpy().astype(np.int64))
+                timer.add('host_syncs', 4)
+            else:
+                U, pidx = bk.bwt_block(blk, n)
+                with timer.stage('encode.wait', index):
+                    res = ('hybrid', int(pidx), U.cpu().numpy())
+                timer.add('host_syncs', 2)
+        return res
 
     def _batch_stage(self, blocks):
         """'hybrid' device work of equal-length blocks in one call:
         [('hybrid', pidx, U), ...]."""
-        stacked = torch.from_numpy(np.stack(blocks)).to(self.device)
-        U, pidx = bk.bwt_block_batch(stacked, stacked.shape[1])
-        U, pidx = U.cpu().numpy(), pidx.cpu().tolist()
+        timer = stage_timer()
+        with timer.stage('encode.device'):
+            with timer.stage('encode.upload'):
+                stacked = torch.from_numpy(np.stack(blocks)).to(self.device)
+            U, pidx = bk.bwt_block_batch(stacked, stacked.shape[1])
+            with timer.stage('encode.wait'):
+                U, pidx = U.cpu().numpy(), pidx.cpu().tolist()
+            timer.add('host_syncs', 2)
         return [('hybrid', p, u) for p, u in zip(pidx, U)]
 
     def compress(self, data, output=None):
         """Compress bytes-like or uint8 `data`.  Returns the stream as
         bytes, or writes it to `output` (a binary file object) and
         returns `output`."""
-        data = _as_u8(data)
-        blocks = _split_blocks(data, self.block_size)
-        metas = [_block_meta(block) for block, _ in blocks]
-        full_rows = [i for i, (b, _) in enumerate(blocks)
-                     if b.shape[0] == self.block_size]
-        use_batch = (self.batch and self.mode == 'hybrid'
-                     and len(full_rows) > 1)
+        timer = stage_timer()
+        with timer.stage('encode.split'):
+            data = _as_u8(data)
+            blocks = _split_blocks(data, self.block_size)
         # one worker: the device stages run in block order, each while
         # the calling thread runs the host stage of the block before
         try:
-            results = []
-            if use_batch:
-                batch = self._worker().submit(
-                    self._batch_stage, [blocks[i][0] for i in full_rows])
-                row_of = {i: r for r, i in enumerate(full_rows)}
-            for i, ((block, _), (_, alphabet_size, remap)) in enumerate(
-                    zip(blocks, metas)):
-                if use_batch and i in row_of:
-                    results.append((batch, row_of[i]))
-                else:
-                    results.append((self._submit(block, alphabet_size,
-                                                 remap), None))
+            with timer.stage('encode.queue'):
+                metas = [_block_meta(block) for block, _ in blocks]
+                full_rows = [i for i, (b, _) in enumerate(blocks)
+                             if b.shape[0] == self.block_size]
+                use_batch = (self.batch and self.mode == 'hybrid'
+                             and len(full_rows) > 1)
+                results = []
+                if use_batch:
+                    batch = self._worker().submit(
+                        self._batch_stage, [blocks[i][0] for i in full_rows])
+                    row_of = {i: r for r, i in enumerate(full_rows)}
+                for i, ((block, _), (_, alphabet_size, remap)) in enumerate(
+                        zip(blocks, metas)):
+                    if use_batch and i in row_of:
+                        results.append((batch, row_of[i]))
+                    else:
+                        results.append((self._submit(block, alphabet_size,
+                                                     remap, i), None))
             return self._assemble(blocks, metas, results, output)
         finally:
             self.close()
@@ -250,13 +272,13 @@ class DeviceBzip2Encoder:
             self._pool = ThreadPoolExecutor(1)
         return self._pool
 
-    def _submit(self, block, alphabet_size, remap):
+    def _submit(self, block, alphabet_size, remap, index=None):
         """Queue one block's device work (`_device_stage`) on the worker
         thread, behind the blocks queued before it; returns a handle for
         `_fetch_full`.  (The JAX encoder's `_submit` dispatches the same
         work asynchronously.)"""
         return self._worker().submit(self._device_stage, block,
-                                     alphabet_size, remap)
+                                     alphabet_size, remap, index)
 
     def _fetch_full(self, handle):
         """Wait for a `_submit` handle: the block's `_device_stage`
@@ -278,9 +300,10 @@ class DeviceBzip2Encoder:
 
     def _assemble(self, blocks, metas, results, output):
         timer = stage_timer()
-        out = BitWriter()
-        out.write_bits(32, int.from_bytes(b'BZh' + bytes([48 + self.level]),
-                                          'big'))
+        with timer.stage('encode.write'):
+            out = BitWriter()
+            out.write_bits(32, int.from_bytes(
+                b'BZh' + bytes([48 + self.level]), 'big'))
         stream_crc = 0
         for (block, crc), (used, alphabet_size, _), (fut, row) in zip(
                 blocks, metas, results):
@@ -292,19 +315,20 @@ class DeviceBzip2Encoder:
                              else 'host entropy stage'):
                 header, payload, bits = _block_bits(block, used,
                                                     alphabet_size, res)
-            stream_crc = stream_crc_combine(stream_crc, crc)
-            out.write_bits(48, WHOLEPI)
-            out.write_bits(32, crc)
-            out.write_bit_array(header)
-            out.write_bit_array(np.unpackbits(payload, count=bits))
-        out.write_bits(48, SQRTPI)
-        out.write_bits(32, stream_crc)
+            with timer.stage('encode.write'):
+                stream_crc = stream_crc_combine(stream_crc, crc)
+                out.write_bits(48, WHOLEPI)
+                out.write_bits(32, crc)
+                out.write_bit_array(header)
+                out.write_bit_array(np.unpackbits(payload, count=bits))
+        with timer.stage('encode.write'):
+            out.write_bits(48, SQRTPI)
+            out.write_bits(32, stream_crc)
+            result = out.getvalue()
+            if output is not None:
+                output.write(result)
         timer.report()
-        result = out.getvalue()
-        if output is None:
-            return result
-        output.write(result)
-        return output
+        return result if output is None else output
 
     def _check_block(self, block, res):
         """Hold the device BWT of `block` against the host transform."""
@@ -549,47 +573,63 @@ def bwtcl_decompress_device(data, output=None, device='cuda'):
     returns it; raises ValueError on a bad magic or a block that does not
     expand to its length.  ``bwtcl_decompress_device.last_stats`` counts
     the blocks of the last call by route."""
-    dev = _device(device, 'bwtcl_decompress_device')
-    ins = ArrayInputStream(_as_u8(data))
-    for ch in host_bwtcl.MAGIC:
-        if ins.read_byte() != ord(ch):
-            raise ValueError('bad magic')
-    read_unsigned_number(ins)                     # file size + 1
-    level, payloads = host_bwtcp.read_container_body(ins)
+    timer = stage_timer()
+    with timer.stage('bwtcl.container'):
+        dev = _device(device, 'bwtcl_decompress_device')
+        ins = ArrayInputStream(_as_u8(data))
+        for ch in host_bwtcl.MAGIC:
+            if ins.read_byte() != ord(ch):
+                raise ValueError('bad magic')
+        read_unsigned_number(ins)                     # file size + 1
+        level, payloads = host_bwtcp.read_container_body(ins)
     bs = level * 100000
     stats = {'device_blocks': 0, 'host_blocks': 0, 'overflow_blocks': 0}
     bwtcl_decompress_device.last_stats = stats
     results = []
     for p in payloads:
-        length, pidx, S, lanes, used, lane_payloads = \
-            host_bwtcl.parse_block_header(p)
-        lane_cap = dl.lane_caps(bs, lanes)[2]
-        if length != bs:
-            stats['host_blocks'] += 1
-            results.append(host_bwtcl.decode_block(p))
+        with timer.stage('bwtcl.header'):
+            length, pidx, S, lanes, used, lane_payloads = \
+                host_bwtcl.parse_block_header(p)
+            lane_cap = dl.lane_caps(bs, lanes)[2]
+            route = 'device_blocks'
+            if length != bs:
+                route = 'host_blocks'
+            elif max(len(x) for x in lane_payloads) > lane_cap:
+                route = 'overflow_blocks'
+        if route != 'device_blocks':
+            stats[route] += 1
+            with timer.stage('bwtcl.host_block'):
+                results.append(host_bwtcl.decode_block(p))
             continue
-        if max(len(x) for x in lane_payloads) > lane_cap:
-            stats['overflow_blocks'] += 1
-            results.append(host_bwtcl.decode_block(p))
-            continue
-        paymat = np.zeros((lanes, lane_cap), dtype=np.uint8)
-        for l, lp in enumerate(lane_payloads):
-            paymat[l, :len(lp)] = lp
-        alphabet = np.flatnonzero(used)
-        sym_map = np.zeros(256, dtype=np.int64)
-        sym_map[:len(alphabet)] = alphabet
-        out, total = dl.decode_block_lanes(
-            torch.from_numpy(paymat).to(dev), bs, lanes, S, pidx,
-            len(alphabet), torch.from_numpy(sym_map).to(dev))
-        if int(total) != bs:
+        with timer.stage('bwtcl.stage'):
+            paymat = np.zeros((lanes, lane_cap), dtype=np.uint8)
+            for l, lp in enumerate(lane_payloads):
+                paymat[l, :len(lp)] = lp
+            alphabet = np.flatnonzero(used)
+            sym_map = np.zeros(256, dtype=np.int64)
+            sym_map[:len(alphabet)] = alphabet
+            paymat = torch.from_numpy(paymat).to(dev)
+            sym_map = torch.from_numpy(sym_map).to(dev)
+        timer.add('host_syncs', 2)  # uploads from pageable memory
+        with timer.stage('bwtcl.launch'):
+            out, total = dl.decode_block_lanes(paymat, bs, lanes, S, pidx,
+                                               len(alphabet), sym_map)
+        with timer.stage('bwtcl.wait'):
+            total = int(total)
+            out = out.cpu().numpy()
+        timer.add('host_syncs', 2)
+        if total != bs:
             raise ValueError('BWTC-L block expands to %d bytes, not %d'
-                             % (int(total), bs))
+                             % (total, bs))
         stats['device_blocks'] += 1
-        results.append(out.cpu().numpy())
-    o = coerce_output_stream(output)
-    for r in results:
-        o.stream.write(r, 0, len(r))
-    return o.retval
+        results.append(out)
+    with timer.stage('bwtcl.write'):
+        o = coerce_output_stream(output)
+        for r in results:
+            o.stream.write(r, 0, len(r))
+        result = o.retval
+    timer.report()
+    return result
 
 
 bwtcl_decompress_device.last_stats = {}

@@ -1,11 +1,16 @@
 """Tracing and profiling of the block pipelines (counterpart of
 ``compressjs_tpu.parallel.profiling``).
 
-* `stage_timer()` -- per-stage wall-clock totals of the encoder's
-  assembly loop, on with COMPRESSJS_TPU_TRACE=1 (the report goes to
-  stderr) or used directly.
-* `device_trace(logdir)` -- a ``torch.profiler`` trace of a region,
-  written as a Chrome trace.
+* `stage_timer()` -- the process's one `StageTimer`: host seconds and
+  entries of the entry points' named stages, and integer counters; on
+  with COMPRESSJS_TPU_TRACE=1 (each entry point prints the report to
+  stderr) or by setting its `enabled`.  While it is on, each stage is
+  also a ``compressjs/<name>`` range on ``torch.profiler``'s host
+  timeline, beside the card's operations on the same clock.  The timer
+  lives in the leaf module ``compressjs_tpu_torch.tracer``, which every
+  layer may import; README lists the stage and counter names.
+* `device_trace(logdir)` -- a ``torch.profiler`` trace of a region, with
+  the timer on, written as a Chrome trace.
 * `roofline(stage, n, seconds)` -- a stage's time against the least time
   the H100's memory allows for its bytes.
 * `chain_throughput(body, init, n_bytes)` -- a device stage's rate with
@@ -16,67 +21,30 @@ from __future__ import annotations
 
 import contextlib
 import os
-import sys
-import time
-from collections import defaultdict
 
-
-class StageTimer:
-    """Wall-clock totals and call counts by stage name; off unless
-    `enabled` or COMPRESSJS_TPU_TRACE=1."""
-
-    def __init__(self, enabled=None):
-        if enabled is None:
-            enabled = os.environ.get('COMPRESSJS_TPU_TRACE') == '1'
-        self.enabled = enabled
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self, out=None):
-        if not self.enabled or not self.totals:
-            return
-        out = out or sys.stderr
-        total = sum(self.totals.values())
-        print('# stage timing:', file=out)
-        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            print('#   %-24s %8.3fs  x%-5d (%4.1f%%)'
-                  % (name, t, self.counts[name], 100 * t / total), file=out)
-
-
-_global_timer = None
-
-
-def stage_timer():
-    global _global_timer
-    if _global_timer is None:
-        _global_timer = StageTimer()
-    return _global_timer
+from ..tracer import SPAN_PREFIX, StageTimer, stage_timer  # noqa: F401
 
 
 @contextlib.contextmanager
 def device_trace(logdir):
     """Trace a region with ``torch.profiler`` (the card's kernels too,
-    where there is a card) and write ``logdir/trace.json``."""
+    where there is a card), with `stage_timer()` on for the region so
+    that the program's ``compressjs/`` stages show beside them, and
+    write ``logdir/trace.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    timer = stage_timer()
+    was = timer.enabled
+    timer.enabled = True
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        timer.enabled = was
     prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))
 
 
