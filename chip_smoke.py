@@ -10,7 +10,10 @@ launches and its start lists on sample5's first block and on uniform
 symbols, the Huffman allocator on sorted tables and the fused table
 build, windowed compose, the staged selector chase at k = 10 and at the
 default k on sample5's first block and on every block of the sample5x4
-decode, the MTF undo's three launches and its start lists on sample5's
+decode, the walk's two kernels (stages 1 and 4, ``cz_walk_maps`` and
+``cz_chunk_walk``) on sample5's first block and on a block at the
+largest caps of a -9 block, each beside the whole walk with its plain
+stages, the MTF undo's three launches and its start lists on sample5's
 first block and on zipf indices), times each MTF launch at 132, 528 and
 all chunks and each whole MTF stage with its launches a call, times the
 latency probes that floor the chase and
@@ -894,6 +897,129 @@ def check_chase(F, sel, sub, dev, rate):
             'staged_bytes': staged, 'global_loads': global_loads,
             'window': window, 'stages': stages,
             'rows_per_position': staged / 4 / max(span, 1)}
+
+
+def max_caps_walk(dev):
+    """The arguments of `huffman_walk_dev` for a block at the largest caps
+    a -9 block reaches, nbits_cap 2^22 and s_cap 32,768, with six tables:
+    the first block of bz2 -9 of a million seeded random letters over 22,
+    whose MTF symbols barely run."""
+    rng = np.random.default_rng(22)
+    data = rng.choice(np.frombuffer(b'abcdefghijklmnopqrstuv', np.uint8),
+                      1000000).tobytes()
+    return first_block_walk(bz2.compress(data, 9), dev)[0]
+
+
+def host_ms(fn, reps):
+    """Mean host milliseconds to issue fn() (no synchronisation inside
+    the timed loop), after one warm call; the card is drained first."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def check_walk(walk, dev, l2_ns):
+    """Both walk kernels (csrc/huffman_walk.cu) vs their plain versions
+    on one block's walk, whole outputs; each timed alone, in its wrapper
+    and as its plain version, beside its bound; then the whole walk with
+    the kernels and with the plain stages 1 and 4 it had before them
+    (device ms, host ms to issue, device kernels a call).
+    l2_ns: one dependent load's latency from L2 (`check_chase`)."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import device_huffman as dh
+    payload, bit0, cap, s_cap, limits, bases, perms, mins, sel, n_sel = \
+        walk[:10]
+    G = limits.shape[0]
+    sel = sel[:s_cap].contiguous()
+    val, nxt = dh.walk_maps(payload, bit0, cap, limits, mins)
+    want_val, _, want_nxt = dh._next_maps(payload, bit0, cap, limits, mins)
+    maps_err = max(int((val.long() - want_val.long()).abs().max()),
+                   int((nxt.long() - want_nxt.long()).abs().max()))
+    starts = dh.selector_chase(dh._power_k(nxt, dh.POWER_K_DEFAULT),
+                               sel[:n_sel].contiguous(), 1)
+    syms, ends = dh.chunk_walk(val, sel, starts, limits, bases, perms, mins)
+    want_s, want_e = dh.chunk_walk_plain(val, sel, starts, limits, bases,
+                                         perms, mins)
+    walk_err = max(int((syms.long() - want_s.long()).abs().max()),
+                   int((ends - want_e).abs().max()))
+    if maps_err or walk_err:
+        raise AssertionError('walk kernels differ from their plain '
+                             'versions: max abs err %d, %d'
+                             % (maps_err, walk_err))
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+    v_out, n_out = torch.empty_like(val), torch.empty_like(nxt)
+    s_out, e_out = torch.empty_like(syms), torch.empty_like(ends)
+
+    def launch_maps():  # the kernels alone, outside their wrappers
+        _cuda.check(lib.cz_walk_maps(
+            payload.data_ptr(), payload.shape[0], bit0, cap,
+            limits.data_ptr(), mins.data_ptr(), G, v_out.data_ptr(),
+            n_out.data_ptr(), stream), 'walk_maps')
+
+    def launch_walk():
+        _cuda.check(lib.cz_chunk_walk(
+            val.data_ptr(), sel.data_ptr(), starts.data_ptr(),
+            starts.shape[0], limits.data_ptr(), bases.data_ptr(),
+            perms.data_ptr(), mins.data_ptr(), G, cap, s_cap,
+            s_out.data_ptr(), e_out.data_ptr(), stream), 'chunk_walk')
+
+    r = {'cap': cap, 's_cap': s_cap, 'n_selectors': n_sel, 'groups': G,
+         'maps_err': maps_err, 'walk_err': walk_err}
+    r['maps_ms'] = cuda_ms(launch_maps, 20)
+    r['walk_ms'] = cuda_ms(launch_walk, 20)
+    if not (torch.equal(v_out, val) and torch.equal(n_out, nxt)
+            and torch.equal(s_out, syms) and torch.equal(e_out, ends)):
+        raise AssertionError('timed walk launches differ')
+    r['maps_wrapper_ms'] = cuda_ms(
+        lambda: dh.walk_maps(payload, bit0, cap, limits, mins), 20)
+    r['walk_wrapper_ms'] = cuda_ms(
+        lambda: dh.chunk_walk(val, sel, starts, limits, bases, perms,
+                              mins), 20)
+    r['maps_plain_ms'] = cuda_ms(
+        lambda: dh._next_maps(payload, bit0, cap, limits, mins), 3)
+    r['walk_plain_ms'] = cuda_ms(
+        lambda: dh.chunk_walk_plain(val, sel, starts, limits, bases, perms,
+                                    mins), 3)
+    # stage 1 reads the payload and writes val and nxt; its arithmetic, a
+    # compare and a select per length and group, is a floor of this
+    # design, not of the work
+    r['maps_bound_ms'], r['maps_bound_by'] = bound(
+        payload.shape[0] + 4 * (1 + G) * cap, 0)
+    r['maps_alu_floor_ms'] = 2 * 20 * G * cap / PEAK_OPS_PER_S * 1e3
+    # stage 4 reads each visited window, the selectors and starts, and
+    # writes each symbol (4 B) and end (8 B); its chain of 50 dependent
+    # loads from L2 floors it
+    r['walk_bound_ms'], r['walk_bound_by'] = bound(
+        16 * 50 * s_cap + 4 * (s_cap + n_sel), 0)
+    r['walk_chain_floor_ms'] = 50 * l2_ns / 1e6
+
+    def plain_stages():  # the walk as it was: stages 1 and 4 plain
+        v, _, nx = dh._next_maps(payload, bit0, cap, limits, mins)
+        st = dh.selector_chase(dh._power_k(nx, dh.POWER_K_DEFAULT),
+                               sel[:n_sel].contiguous(), 1)
+        sy, en = dh.chunk_walk_plain(v, sel, st, limits, bases, perms, mins)
+        valid = torch.arange(s_cap * 50, device=dev) < n_sel * 50
+        count = torch.argmax(((sy == walk[10]) & valid).to(torch.int32))
+        return sy, count, en[count.view(1)][0] + bit0
+
+    def kernels():
+        return dh.huffman_walk_dev(*walk)
+
+    got, want = kernels(), plain_stages()
+    if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+            and int(got[2]) == int(want[2])):
+        raise AssertionError('the walk differs from its plain stages')
+    for name, fn in (('whole', kernels), ('whole_plain', plain_stages)):
+        r[name + '_ms'] = cuda_ms(fn, 5)
+        r[name + '_host_ms'] = host_ms(fn, 5)
+        r[name + '_kernels'] = kernels_launched(fn)
+    return r
 
 
 def decode_chases(comp):
@@ -2255,6 +2381,30 @@ def main():
              dec_chase['stream_floor_ms'], dec_chase['staged_bytes'],
              dec_chase['smem_floor_ms'], dec_chase['steps']))
 
+    phase('walk kernels vs plain versions')
+    walk_rows = {}
+    for name, w in (('sample5 block 0', walk),
+                    ('max caps', max_caps_walk(dev))):
+        r = walk_rows[name] = check_walk(w, dev, chase['l2_ns_per_load'])
+        print('  %s (cap %d, s_cap %d, %d selectors, G %d): cz_walk_maps '
+              'kernel %.4f ms, wrapper %.4f ms, plain %.3f ms, bound %.5f '
+              'ms (%s), its arithmetic %.5f ms; cz_chunk_walk kernel %.4f '
+              'ms, wrapper %.4f ms, plain %.3f ms, bound %.5f ms (%s), L2 '
+              'chain floor %.5f ms'
+              % (name, r['cap'], r['s_cap'], r['n_selectors'], r['groups'],
+                 r['maps_ms'], r['maps_wrapper_ms'], r['maps_plain_ms'],
+                 r['maps_bound_ms'], r['maps_bound_by'],
+                 r['maps_alu_floor_ms'], r['walk_ms'], r['walk_wrapper_ms'],
+                 r['walk_plain_ms'], r['walk_bound_ms'],
+                 r['walk_bound_by'], r['walk_chain_floor_ms']))
+        print('    whole walk: kernels %.4f ms on the card, %.4f ms to '
+              'issue, %d device kernels; plain stages 1 and 4 %.4f ms, '
+              '%.4f ms to issue, %d device kernels'
+              % (r['whole_ms'], r['whole_host_ms'], r['whole_kernels'],
+                 r['whole_plain_ms'], r['whole_plain_host_ms'],
+                 r['whole_plain_kernels']))
+    walk_main = walk_rows['max caps']
+
     phase('MTF-undo kernels vs plain versions')
     idx, total = first_block_mtf_indices(walk, dbuf_size)
     undo_real = check_mtf_undo(idx, dbuf_size)
@@ -2339,6 +2489,8 @@ def main():
         raise AssertionError('sample5x4 decode differs from bz2')
     if dec_launches['compose_windowed'] != n_compose * n_dec \
             or dec_launches['selector_chase'] != n_dec \
+            or dec_launches['walk_maps'] != n_dec \
+            or dec_launches['chunk_walk'] != n_dec \
             or dec_launches['mtf_undo'] != 3 * n_dec:
         raise AssertionError('decode skipped a kernel: %s' % dec_launches)
 
@@ -2390,7 +2542,8 @@ def main():
           % (len(c1), len(out), false_hit[0], c1_launches))
     if out != data:
         raise AssertionError('stream with a false end magic decodes wrong')
-    if c1_launches['selector_chase'] < 3 or c1_launches['mtf_undo'] < 9:
+    if c1_launches['selector_chase'] < 3 or c1_launches['mtf_undo'] < 9 \
+            or c1_launches['walk_maps'] < 3 or c1_launches['chunk_walk'] < 3:
         raise AssertionError('false-magic decode skipped a kernel: %s'
                              % c1_launches)
 
@@ -2610,6 +2763,35 @@ def main():
          'k10_ms': chases[10]['ms'], 'k10_replaced_ms': chases[10]['old_ms'],
          's5x4_decode_ms': dec_chase['ms'],
          's5x4_decode_replaced_ms': dec_chase['old_ms']},
+        {'name': 'walk_maps', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/huffman_walk.cu',
+         'replaces': 'compressjs_tpu/ops/device_huffman.py:61 and :85 '
+                     '(_window_vals, _group_lengths; no TPU kernel)',
+         'launches': total('walk_maps'),
+         'launches_by_path': by_path('walk_maps'),
+         'max_abs_err': max(r['maps_err'] for r in walk_rows.values()),
+         'ms': walk_main['maps_ms'], 'plain_ms': walk_main['maps_plain_ms'],
+         'bound_ms': walk_main['maps_bound_ms'],
+         'bound_by': walk_main['maps_bound_by'], 'library_ms': None,
+         'wrapper_ms': walk_main['maps_wrapper_ms'],
+         'alu_floor_ms': walk_main['maps_alu_floor_ms'],
+         'shape': [walk_main['groups'], walk_main['cap']],
+         'sample5_ms': walk_rows['sample5 block 0']['maps_ms']},
+        {'name': 'chunk_walk', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/huffman_walk.cu',
+         'replaces': 'compressjs_tpu/ops/device_huffman.py:313-329 '
+                     '(lax.scan, no TPU kernel)',
+         'launches': total('chunk_walk'),
+         'launches_by_path': by_path('chunk_walk'),
+         'max_abs_err': max(r['walk_err'] for r in walk_rows.values()),
+         'ms': walk_main['walk_ms'], 'plain_ms': walk_main['walk_plain_ms'],
+         'bound_ms': walk_main['walk_bound_ms'],
+         'bound_by': walk_main['walk_bound_by'], 'library_ms': None,
+         'wrapper_ms': walk_main['walk_wrapper_ms'],
+         'chain_floor_ms': walk_main['walk_chain_floor_ms'],
+         'shape': [walk_main['s_cap'], 50],
+         'sample5_ms': walk_rows['sample5 block 0']['walk_ms'],
+         'whole_walk': walk_rows},
         {'name': 'chase_probe', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/probes.cu',
          'replaces': 'compressjs_tpu/ops/device_huffman.py:291 (lax.scan, '

@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu', 'compose_windowed.cu',
            'selector_chase.cu', 'mtf_undo.cu', 'probes.cu',
-           'fenwick_encode.cu', 'fenwick_decode.cu')
+           'fenwick_encode.cu', 'fenwick_decode.cu', 'huffman_walk.cu')
 # headers the sources include (part of the build's hash)
 HEADERS = ('fenwick_tree.cuh', 'range_coder.cuh')
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
@@ -40,7 +40,7 @@ launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'code_lengths': 0,
             'compose_windowed': 0, 'selector_chase': 0, 'mtf_undo': 0,
             'chase_probe': 0, 'smem_chain_probe': 0, 'stage_probe': 0,
             'fenwick_encode': 0, 'range_encode': 0, 'fenwick_code': 0,
-            'fenwick_decode': 0}
+            'fenwick_decode': 0, 'walk_maps': 0, 'chunk_walk': 0}
 # what the last build did: wall seconds (0 if reused) and nvcc's messages
 # (the -Xptxas -v register and shared-memory lines, kept beside the
 # library for a later reuse)
@@ -150,6 +150,11 @@ def _bind(lib):
     lib.cz_fenwick_decode.restype = i32
     lib.cz_fenwick_decode_levels.argtypes = []
     lib.cz_fenwick_decode_levels.restype = i32
+    lib.cz_walk_maps.argtypes = [p, i64, i32, i32, p, p, i32, p, p, p]
+    lib.cz_walk_maps.restype = i32
+    lib.cz_chunk_walk.argtypes = [p, p, p, i32, p, p, p, p, i32, i32, i32,
+                                  p, p, p]
+    lib.cz_chunk_walk.restype = i32
     return lib
 
 

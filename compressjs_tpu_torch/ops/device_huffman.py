@@ -4,9 +4,9 @@ and of the whole block decode (counterpart of
 
 The sequential bit-by-bit walk becomes four parallel stages:
 
-1. speculative decode at every bit offset: under each group's table the
-   code length at offset p is the smallest L >= min_len with
-   ``bits[p:p+L] <= limit[L]``, so ``nxt_g[p] = p + len_g[p]``;
+1. `walk_maps`, speculative decode at every bit offset: under each
+   group's table the code length at offset p is the smallest L >= min_len
+   with ``bits[p:p+L] <= limit[L]``, so ``nxt_g[p] = p + len_g[p]``;
 2. `_power_k`: ``F_g = nxt_g^k`` by a squaring ladder of windowed
    compositions (`ops.compose.compose_windowed`, a CUDA kernel on the
    card);
@@ -15,7 +15,11 @@ The sequential bit-by-bit walk becomes four parallel stages:
    chain, run on the card by one CUDA thread that reads F from windows
    staged ahead of it in shared memory (``csrc/selector_chase.cu``), and
    by its plain version, a host loop, for a CPU tensor;
-4. every 50-symbol chunk then decodes in lock-step, 50 vector steps.
+4. `chunk_walk`: every 50-symbol chunk then decodes its 50 symbols.
+
+Stages 1 and 4 are one launch each on the card (``csrc/huffman_walk.cu``);
+for a CPU tensor their plain versions, `_next_maps` and
+`chunk_walk_plain`, run one tensor operation at a time.
 
 `decode_block_full_dev` follows the walk with RLE2 undo, MTF undo, the
 used-alphabet map, the inverse BWT and RLE1 undo (``ops.block_decode``).
@@ -41,6 +45,9 @@ BIG_LIMIT = 1 << 28    # stands in for the int64-max limit sentinel
 POWER_K_DEFAULT = 50
 # most selectors one chase launch takes: a bzip2 block has at most 32,767
 CHASE_MAX_SEL = 32768
+# the walk kernels' caps: bzip2's table count, and the payload bits
+MAX_GROUPS = 6
+MAX_WALK_BITS = 1 << 30
 _MASK32 = 0xFFFFFFFF
 
 
@@ -112,9 +119,9 @@ def _group_lengths(val, limits, mins):
 
 
 def _next_maps(payload_bytes, bit0, nbits_cap, limits, min_lens):
-    """Stage 1 of the walk: (val, lens, nxt) -- the code window at every
-    payload bit, each group's code length there, and the next symbol's
-    bit nxt[g, p] = p + lens[g, p], clamped into the cap."""
+    """Plain version of `walk_maps`: (val, lens, nxt) -- the code window
+    at every payload bit, each group's code length there, and the next
+    symbol's bit nxt[g, p] = p + lens[g, p], clamped into the cap."""
     n_words = (nbits_cap + MAX_CODE_BITS + 31) // 32 + 1
     val = _window_vals(payload_words(payload_bytes, n_words), bit0,
                        nbits_cap)
@@ -189,6 +196,126 @@ def selector_chase(F, sel, sub):
     return starts
 
 
+def _check_tables(what, dev, limits, min_lens, *more):
+    """The decode tables a walk kernel takes: contiguous int32 on `dev`,
+    limits (G, 22) and min_lens (G,) with 1 <= G <= 6, then each of `more`
+    (tensor, its shape)."""
+    G = limits.shape[0] if limits.dim() == 2 else 0
+    want = [(limits, (G, MAX_CODE_BITS + 2)), (min_lens, (G,))]
+    for t, shape in want + list(more):
+        if (tuple(t.shape) != tuple(shape) or t.dtype != torch.int32
+                or t.device != dev or not t.is_contiguous()
+                or not 1 <= G <= MAX_GROUPS):
+            raise ValueError('%s takes contiguous int32 tables on %s: '
+                             'limits (G, %d), min_lens (G,), bases (G, %d), '
+                             'permutes (G, 258), 1 <= G <= %d'
+                             % (what, dev, MAX_CODE_BITS + 2,
+                                MAX_CODE_BITS + 1, MAX_GROUPS))
+    return G
+
+
+def walk_maps(payload_bytes, bit0, nbits_cap, limits, min_lens):
+    """Stage 1 of the walk: (val, nxt), the code window at every payload
+    bit (nbits_cap,) and the next symbol's bit under each group's table,
+    nxt[g, p] = min(p + len_g(p), nbits_cap - 1) (G, nbits_cap), both
+    int32.  One launch of ``cz_walk_maps`` for a CUDA tensor (the lengths
+    are not kept: `chunk_walk` recomputes the ones it needs); `_next_maps`
+    for a CPU tensor."""
+    if payload_bytes.device.type == 'cpu':
+        val, _, nxt = _next_maps(payload_bytes, bit0, nbits_cap, limits,
+                                 min_lens)
+        return val, nxt
+    _cuda.require_cuda(payload_bytes, 'walk_maps')
+    dev = payload_bytes.device
+    G = _check_tables('walk_maps', dev, limits, min_lens)
+    if (payload_bytes.dim() != 1 or payload_bytes.dtype != torch.uint8
+            or not payload_bytes.is_contiguous() or not 0 <= bit0 < 8
+            or not 1 <= nbits_cap <= MAX_WALK_BITS):
+        raise ValueError('walk_maps takes contiguous uint8 payload bytes, '
+                         '0 <= bit0 < 8 and 1 <= nbits_cap <= 2^30')
+    val = torch.empty(nbits_cap, dtype=torch.int32, device=dev)
+    nxt = torch.empty((G, nbits_cap), dtype=torch.int32, device=dev)
+    lib = _cuda.lib()
+    _cuda.launches['walk_maps'] += 1
+    _cuda.check(lib.cz_walk_maps(payload_bytes.data_ptr(),
+                                 payload_bytes.shape[0], bit0, nbits_cap,
+                                 limits.data_ptr(), min_lens.data_ptr(), G,
+                                 val.data_ptr(), nxt.data_ptr(),
+                                 _cuda.stream_handle(dev)), 'walk_maps')
+    return val, nxt
+
+
+def chunk_walk_plain(val, sel, starts, limits, bases, permutes, min_lens):
+    """Plain version of `chunk_walk`: the chunks decode in lock-step, 50
+    vector steps, each step's code length found at its offset under the
+    chunk's group."""
+    dev, nbits_cap, s_cap = val.device, val.shape[0], sel.shape[0]
+    sel64 = sel.to(torch.int64).clamp(0, limits.shape[0] - 1)
+    # each chunk's limits for L = 1..20; a length below min_len never fits
+    L = torch.arange(1, MAX_CODE_BITS + 1, device=dev)
+    lim = torch.where(L >= min_lens[:, None],
+                      limits[:, 1:MAX_CODE_BITS + 1], -1)[sel64]
+    base_off = sel64 * bases.shape[1]
+    perm_w = permutes.shape[1]
+    perm_off = sel64 * perm_w
+    base_flat, perm_flat = bases.reshape(-1), permutes.reshape(-1)
+    pos = torch.zeros(s_cap, dtype=torch.int64, device=dev)
+    pos[:starts.shape[0]] = starts.clamp(0, nbits_cap - 1)
+    syms = torch.empty((GROUP_SIZE, s_cap), dtype=torch.int32, device=dev)
+    ends = torch.empty((GROUP_SIZE, s_cap), dtype=torch.int64, device=dev)
+    for t in range(GROUP_SIZE):
+        v = val[pos]
+        fits = (v[:, None] >> (MAX_CODE_BITS - L)) <= lim
+        ln = torch.where(fits, L, MAX_CODE_BITS).amin(1)
+        j = (v >> (MAX_CODE_BITS - ln)) - base_flat[base_off + ln]
+        syms[t] = perm_flat[perm_off + j.clamp(0, perm_w - 1)]
+        ends[t] = pos + ln
+        pos = ends[t].clamp(0, nbits_cap - 1)
+    return syms.T.reshape(-1), ends.T.reshape(-1)
+
+
+def chunk_walk(val, sel, starts, limits, bases, permutes, min_lens):
+    """Stage 4 of the walk: each 50-symbol chunk c decodes from bit
+    starts[c] (0 for c >= len(starts)) under group sel[c]'s table
+    (clamped into [0, G)).  val (nbits_cap,) from `walk_maps`, sel
+    (s_cap,), starts (<= s_cap,) int32; the tables as `huffman_walk_dev`
+    takes them.  Returns (syms int32, ends int64), each (s_cap * 50,)
+    chunk-major: every symbol and the bit just past it.  One launch of
+    ``cz_chunk_walk`` for a CUDA tensor, `chunk_walk_plain` for a CPU
+    tensor."""
+    if val.device.type == 'cpu':
+        return chunk_walk_plain(val, sel, starts, limits, bases, permutes,
+                                min_lens)
+    _cuda.require_cuda(val, 'chunk_walk')
+    dev = val.device
+    s_cap = sel.shape[0] if sel.dim() == 1 else -1
+    G = _check_tables('chunk_walk', dev, limits, min_lens,
+                      (bases, (limits.shape[0], MAX_CODE_BITS + 1)),
+                      (permutes, (limits.shape[0], 258)))
+    if (val.dim() != 1 or starts.dim() != 1
+            or not 1 <= val.shape[0] <= MAX_WALK_BITS
+            or not 1 <= s_cap <= CHASE_MAX_SEL
+            or starts.shape[0] > s_cap
+            or any(t.dtype != torch.int32 or t.device != dev
+                   or not t.is_contiguous() for t in (val, sel, starts))):
+        raise ValueError('chunk_walk takes contiguous int32 val (<= 2^30,), '
+                         'sel (1..%d,) and starts (<= len(sel),) on one '
+                         'device' % CHASE_MAX_SEL)
+    n = s_cap * GROUP_SIZE
+    syms = torch.empty(n, dtype=torch.int32, device=dev)
+    ends = torch.empty(n, dtype=torch.int64, device=dev)
+    lib = _cuda.lib()
+    _cuda.launches['chunk_walk'] += 1
+    _cuda.check(lib.cz_chunk_walk(val.data_ptr(), sel.data_ptr(),
+                                  starts.data_ptr(), starts.shape[0],
+                                  limits.data_ptr(), bases.data_ptr(),
+                                  permutes.data_ptr(), min_lens.data_ptr(),
+                                  G, val.shape[0], s_cap, syms.data_ptr(),
+                                  ends.data_ptr(), _cuda.stream_handle(dev)),
+                'chunk_walk')
+    return syms, ends
+
+
 @staged('ops.huffman_walk_dev')
 def huffman_walk_dev(payload_bytes, bit0, nbits_cap, s_cap, limits, bases,
                      permutes, min_lens, selectors, n_selectors, eob):
@@ -206,36 +333,15 @@ def huffman_walk_dev(payload_bytes, bit0, nbits_cap, s_cap, limits, bases,
     the EOB's index (0-dim tensor) and the bit just past the EOB counted
     from payload_bytes' bit 0 (0-dim tensor)."""
     dev = payload_bytes.device
-    val, lens, nxt = _next_maps(payload_bytes, bit0, nbits_cap, limits,
-                                min_lens)
+    val, nxt = walk_maps(payload_bytes, bit0, nbits_cap, limits, min_lens)
     F = _power_k(nxt, POWER_K_DEFAULT)
     sel = selectors[:s_cap].to(torch.int32).contiguous()
     # the chain stops at n_selectors: chunks past it lie past the EOB, and
-    # their starts stay 0
-    m = min(n_selectors, s_cap)
-    starts = torch.zeros_like(sel)
-    starts[:m] = selector_chase(F, sel[:m], GROUP_SIZE // POWER_K_DEFAULT)
-
-    # chunk-parallel 50-symbol walk; a step's code length is the one
-    # stage 1 already found at that offset under the chunk's group
-    sel64 = sel.to(torch.int64)
-    len_off = sel64 * nbits_cap
-    base_off = sel64 * bases.shape[1]
-    perm_w = permutes.shape[1]
-    perm_off = sel64 * perm_w
-    lens_flat, base_flat, perm_flat = (lens.view(-1), bases.reshape(-1),
-                                       permutes.reshape(-1))
-    pos = starts.to(torch.int64)
-    syms = torch.empty((GROUP_SIZE, s_cap), dtype=torch.int32, device=dev)
-    ends = torch.empty((GROUP_SIZE, s_cap), dtype=torch.int64, device=dev)
-    for t in range(GROUP_SIZE):
-        ln = lens_flat[len_off + pos]
-        j = (val[pos] >> (MAX_CODE_BITS - ln)) - base_flat[base_off + ln]
-        syms[t] = perm_flat[perm_off + j.clamp(0, perm_w - 1)]
-        ends[t] = pos + ln
-        pos = ends[t].clamp(0, nbits_cap - 1)
-    syms = syms.T.reshape(-1)
-    ends = ends.T.reshape(-1)
+    # start at bit 0
+    starts = selector_chase(F, sel[:min(n_selectors, s_cap)],
+                            GROUP_SIZE // POWER_K_DEFAULT)
+    syms, ends = chunk_walk(val, sel, starts, limits, bases, permutes,
+                            min_lens)
     valid = torch.arange(s_cap * GROUP_SIZE, device=dev) < \
         n_selectors * GROUP_SIZE
     count = torch.argmax(((syms == eob) & valid).to(torch.int32))

@@ -344,6 +344,152 @@ def test_walk_on_card_equals_cpu(cuda):
     assert torch.equal(gs[:count].cpu(), ws[:count])
 
 
+def _walk_kernels_equal_plain(payload, bit0, nbits_cap, limits, bases,
+                              perms, mins, sel, n_sel):
+    """Both walk kernels against their plain versions on the CPU, whole
+    outputs, one launch each; the chunk walk from the chase's starts and
+    from arbitrary starts (some outside the cap)."""
+    before = dict(_cuda.launches)
+    val, nxt = dh.walk_maps(payload, bit0, nbits_cap, limits, mins)
+    assert _cuda.launches['walk_maps'] == before['walk_maps'] + 1
+    cpu = [t.cpu() for t in (payload, limits, bases, perms, mins, sel)]
+    payload_c, limits_c, bases_c, perms_c, mins_c, sel_c = cpu
+    val_c, _, nxt_c = dh._next_maps(payload_c, bit0, nbits_cap, limits_c,
+                                    mins_c)
+    assert torch.equal(val.cpu(), val_c)
+    assert torch.equal(nxt.cpu(), nxt_c)
+    m = min(n_sel, sel.shape[0])
+    chased = dh.selector_chase(dh._power_k(nxt, dh.POWER_K_DEFAULT),
+                               sel[:m].contiguous(), 1)
+    rng = np.random.default_rng(nbits_cap + m)
+    arbitrary = torch.from_numpy(rng.integers(
+        -50, nbits_cap + 50, m).astype(np.int32)).to(payload.device)
+    for starts in (chased, arbitrary):
+        n = _cuda.launches['chunk_walk']
+        syms, ends = dh.chunk_walk(val, sel, starts, limits, bases, perms,
+                                   mins)
+        assert _cuda.launches['chunk_walk'] == n + 1
+        want_s, want_e = dh.chunk_walk_plain(val_c, sel_c, starts.cpu(),
+                                             limits_c, bases_c, perms_c,
+                                             mins_c)
+        assert syms.dtype == want_s.dtype and ends.dtype == want_e.dtype
+        assert torch.equal(syms.cpu(), want_s)
+        assert torch.equal(ends.cpu(), want_e)
+
+
+def test_walk_kernels_match_plain_sample5(cuda):
+    """Sample5's first block at the stream decoder's caps."""
+    payload, bit0, nbits_cap, s_cap, limits, bases, perms, mins, sel, \
+        n_sel, _ = _sample5_first_walk(cuda)
+    assert s_cap > n_sel
+    _walk_kernels_equal_plain(payload, bit0, nbits_cap, limits, bases,
+                              perms, mins, sel[:s_cap].contiguous(), n_sel)
+
+
+def _random_walk_case(bit0, G, dev, nbits_cap=4096, s_cap=128):
+    """Random payload and tables: lengths below a min_len above 1, limits
+    of -1 (no code of that length), above every window, and at random, so
+    that at some offsets no code fits; n_selectors below s_cap, and a
+    payload that sometimes ends before the cap."""
+    rng = np.random.default_rng(bit0 * 10 + G)
+    n_bytes = (nbits_cap + bit0 + 7) // 8 + int(rng.integers(-40, 9))
+    payload = rng.integers(0, 256, n_bytes).astype(np.uint8)
+    limits = np.full((G, dh.MAX_CODE_BITS + 2), -1, np.int32)
+    for g in range(G):
+        for L in range(1, dh.MAX_CODE_BITS + 2):
+            limits[g, L] = rng.choice([-1, int(rng.integers(
+                0, 1 << min(L, 20))), dh.BIG_LIMIT])
+    mins = rng.integers(1, 6, G).astype(np.int32)
+    mins[0] = 3
+    bases = rng.integers(-(1 << 20), 1 << 20, (G, 21)).astype(np.int32)
+    bases[:, 5] = rng.integers(-300, 300, G)   # some j inside [0, 258)
+    perms = rng.integers(0, 258, (G, 258)).astype(np.int32)
+    n_sel = s_cap // 2 + bit0
+    sel = np.zeros(s_cap, np.int32)
+    sel[:n_sel] = rng.integers(0, G, n_sel)
+    return [torch.from_numpy(x).to(dev) for x in (
+        payload, limits, bases, perms, mins, sel)] + [n_sel]
+
+
+@pytest.mark.parametrize('G', [2, 6])
+@pytest.mark.parametrize('bit0', range(8))
+def test_walk_kernels_match_plain_random(cuda, bit0, G):
+    payload, limits, bases, perms, mins, sel, n_sel = _random_walk_case(
+        bit0, G, cuda)
+    _walk_kernels_equal_plain(payload, bit0, 4096, limits, bases, perms,
+                              mins, sel, n_sel)
+
+
+def test_walk_launches_each_kernel_once(cuda):
+    """The whole walk of sample5's first block on the card: one launch of
+    each walk kernel, and the whole symbol stream, count and end bit of
+    the walk on the CPU."""
+    before = dict(_cuda.launches)
+    gs, gc, ge = dh.huffman_walk_dev(*_sample5_first_walk(cuda))
+    for name in ('walk_maps', 'chunk_walk', 'selector_chase'):
+        assert _cuda.launches[name] == before[name] + 1
+    ws, wc, we = dh.huffman_walk_dev(*_sample5_first_walk('cpu'))
+    assert torch.equal(gs.cpu(), ws)
+    assert int(gc) == int(wc) > 0 and int(ge) == int(we)
+
+
+def test_walk_wrappers_reject_bad_input(cuda):
+    payload, limits, bases, perms, mins, sel, _ = _random_walk_case(
+        0, 6, cuda)
+    val, _ = dh.walk_maps(payload, 0, 4096, limits, mins)
+    starts = sel[:10].contiguous()
+    bad_maps = [
+        (payload.int(), 0, 4096, limits, mins),          # dtype
+        (payload, 0, 4096, limits.long(), mins),
+        (payload.view(-1, 1), 0, 4096, limits, mins),    # shape
+        (payload, 0, 4096, limits[:, :21], mins),
+        (payload, 0, 4096, limits, mins[:5]),
+        (payload, 8, 4096, limits, mins),
+        (payload, 0, 0, limits, mins),
+        (payload, 0, 4096, limits.cpu(), mins),          # device
+        (payload[::2], 0, 4096, limits, mins),           # contiguity
+        (payload, 0, 4096, limits.t().contiguous().t(), mins),
+    ]
+    for args in bad_maps:
+        with pytest.raises(ValueError):
+            dh.walk_maps(*args)
+    bad_walks = [
+        (val.long(), sel, starts, limits, bases, perms, mins),   # dtype
+        (val, sel.long(), starts, limits, bases, perms, mins),
+        (val, sel, starts, limits, bases.long(), perms, mins),
+        (val, sel.view(2, -1), starts, limits, bases, perms, mins),  # shape
+        (val, sel, torch.zeros(129, dtype=torch.int32, device=cuda),
+         limits, bases, perms, mins),
+        (val, sel, starts, limits, bases[:, :20], perms, mins),
+        (val, sel, starts, limits, bases, perms[:5], mins),
+        (val, sel, starts.cpu(), limits, bases, perms, mins),    # device
+        (val, sel, starts, limits, bases, perms.cpu(), mins),
+        (val, sel[::2], starts, limits, bases, perms, mins),     # contiguity
+        (val, sel, starts, limits, bases, perms.t().contiguous().t(), mins),
+    ]
+    for args in bad_walks:
+        with pytest.raises(ValueError):
+            dh.chunk_walk(*args)
+    meta = torch.empty(4096, dtype=torch.int32, device='meta')
+    with pytest.raises(RuntimeError):
+        dh.chunk_walk(meta, sel, starts, limits, bases, perms, mins)
+
+
+def test_decode_multiblock_launches_walk_kernels_once_a_candidate(cuda):
+    """A five-block stdlib stream through `decompress_file_device`: the
+    bytes back, and each walk kernel launched once a candidate block."""
+    rng = np.random.default_rng(5)
+    data = rng.choice(np.frombuffer(b'abcdefgh \n', np.uint8),
+                      450000).tobytes()
+    comp = bz2.compress(data, 1)
+    n_cands = len(bp._parse_candidates(np.frombuffer(comp, np.uint8))[2])
+    assert n_cands >= 5
+    before = dict(_cuda.launches)
+    assert cz.decompress_file_device(comp) == data
+    for name in ('walk_maps', 'chunk_walk', 'selector_chase'):
+        assert _cuda.launches[name] - before[name] == n_cands
+
+
 @pytest.mark.parametrize('sub', [1, 5])
 def test_chase_kernel_bounded_equals_full(cuda, sub):
     """The kernel's chase over the first n_selectors selectors gives the

@@ -309,3 +309,95 @@ def test_selector_chase_plain_edge_cases_match_jax(case):
         np.testing.assert_array_equal(got, _chase_reference(F, sel, sub))
     if case == 'clamped_tail':
         assert (got[-5:] == F.shape[1] - 1).all()
+
+
+def _lens_walk(val, lens, starts, sel, bases, permutes):
+    """The chunk walk read step by step from stage 1's code lengths
+    (G, nbits_cap): chunk c from starts[c] (0 past len(starts))."""
+    cap = val.shape[0]
+    syms = np.empty((sel.shape[0], dh.GROUP_SIZE), np.int64)
+    ends = np.empty_like(syms)
+    for c, g in enumerate(sel.tolist()):
+        pos = int(starts[c]) if c < starts.shape[0] else 0
+        for t in range(dh.GROUP_SIZE):
+            ln = int(lens[g, pos])
+            j = (int(val[pos]) >> (dh.MAX_CODE_BITS - ln)) - int(bases[g, ln])
+            syms[c, t] = int(permutes[g, min(max(j, 0), 257)])
+            ends[c, t] = pos + ln
+            pos = min(pos + ln, cap - 1)
+    return syms.reshape(-1), ends.reshape(-1)
+
+
+def _random_tables(seed, G, nbits_cap, s_cap):
+    """Random payload and tables whose min_len is above 1 and whose
+    limits make some offsets fit no code; n_selectors below s_cap."""
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, nbits_cap // 8 + 4).astype(np.uint8)
+    limits = np.full((G, dh.MAX_CODE_BITS + 2), -1, np.int32)
+    for g in range(G):
+        for L in range(1, dh.MAX_CODE_BITS + 2):
+            limits[g, L] = rng.choice([-1, int(rng.integers(
+                0, 1 << min(L, 20))), dh.BIG_LIMIT])
+    mins = rng.integers(2, 6, G).astype(np.int32)
+    bases = rng.integers(-300, 300, (G, 21)).astype(np.int32)
+    perms = rng.integers(0, 258, (G, 258)).astype(np.int32)
+    n_sel = s_cap - 7
+    sel = np.zeros(s_cap, np.int32)
+    sel[:n_sel] = rng.integers(0, G, n_sel)
+    return [torch.from_numpy(x) for x in (payload, limits, bases, perms,
+                                          mins, sel)] + [n_sel]
+
+
+@pytest.mark.parametrize('seed,G', [(0, 2), (1, 6), (2, 3), (3, 6)])
+def test_chunk_walk_plain_reads_stage1_lengths(seed, G):
+    """The plain chunk walk finds each step's code length at its offset;
+    it equals the walk that reads stage 1's lengths there, on the whole
+    symbol and end arrays, chunks past n_selectors included."""
+    payload, limits, bases, perms, mins, sel, n_sel = _random_tables(
+        seed, G, 4096, 64)
+    val, lens, nxt = dh._next_maps(payload, seed % 8, 4096, limits, mins)
+    starts = dh.selector_chase(dh._power_k(nxt, dh.POWER_K_DEFAULT),
+                               sel[:n_sel], 1)
+    syms, ends = dh.chunk_walk_plain(val, sel, starts, limits, bases, perms,
+                                     mins)
+    want_s, want_e = _lens_walk(val.numpy(), lens.numpy(), starts.numpy(),
+                                sel.numpy(), bases.numpy(), perms.numpy())
+    np.testing.assert_array_equal(syms.numpy(), want_s)
+    np.testing.assert_array_equal(ends.numpy(), want_e)
+
+
+def test_walk_on_cpu_runs_plain_versions(monkeypatch):
+    """For CPU tensors the walk's stages are the plain versions: nothing
+    is built or launched."""
+    from compressjs_tpu_torch.ops import _cuda
+
+    def no_kernels():
+        raise AssertionError('a CPU walk asked for the CUDA library')
+
+    monkeypatch.setattr(_cuda, 'lib', no_kernels)
+    before = dict(_cuda.launches)
+    payload, limits, bases, perms, mins, sel, n_sel = _random_tables(
+        4, 6, 4096, 64)
+    val, nxt = dh.walk_maps(payload, 5, 4096, limits, mins)
+    want_val, _, want_nxt = dh._next_maps(payload, 5, 4096, limits, mins)
+    assert torch.equal(val, want_val) and torch.equal(nxt, want_nxt)
+    starts = sel[:n_sel] * 7
+    got = dh.chunk_walk(val, sel, starts, limits, bases, perms, mins)
+    want = dh.chunk_walk_plain(val, sel, starts, limits, bases, perms, mins)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    comp, header, sym_start = _first_block(_data('text'))
+    nbits_cap = (comp.shape[0] - (sym_start >> 3)) * 8
+    _both_walks(comp, header, sym_start, nbits_cap, len(header[2]))
+    assert _cuda.launches == before
+
+
+def test_walk_wrappers_refuse_other_devices():
+    """Only a CPU tensor takes the plain versions; elsewhere the wrappers
+    launch their kernels or raise."""
+    m = torch.empty(4096, dtype=torch.int32, device='meta')
+    tabs = [torch.empty(s, dtype=torch.int32, device='meta')
+            for s in ((6, 22), (6, 21), (6, 258), (6,))]
+    with pytest.raises(RuntimeError):
+        dh.walk_maps(m.to(torch.uint8), 0, 4096, tabs[0], tabs[3])
+    with pytest.raises(RuntimeError):
+        dh.chunk_walk(m, m[:64], m[:10], *tabs)
