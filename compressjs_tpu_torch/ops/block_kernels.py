@@ -170,6 +170,7 @@ def eof_suffix_sort(block, n):
     return order
 
 
+@staged('ops.bwt_eof_block')
 def bwt_eof_block(block, n):
     """EOF-terminated BWT of block[:n] (the BWTC codec's transform):
     (U uint8[n], pidx + 1) with U[0] = block[n-1], then the byte before

@@ -260,6 +260,7 @@ def fenwick_code_streams_plain(symbols, step_valid, Ns, max_n, max_prob,
         init_state.to(torch.int64), cap)
 
 
+@staged('ops.fenwick_code_streams')
 def fenwick_code_streams(symbols, step_valid, Ns, max_n, max_prob,
                          increment, init_state, tok_cap=None):
     """Code (L, T) symbol streams through per-lane Fenwick models (as

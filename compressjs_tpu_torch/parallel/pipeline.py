@@ -425,25 +425,33 @@ def _bwtcp_tok_cap(bs):
     return bs + (bs >> 2) + 64
 
 
-def _bwtcp_group(blocks, level, dev):
+def _bwtcp_group(blocks, level, dev, first=0):
     """The full blocks of one dispatch as BWTC-P block streams, or None
     for a block whose tokens or bytes pass their caps.  Per block the
-    card runs the EOF BWT, MTF and RLE2; the host codes the header on the
-    block's fresh coder and hands its state over; then one launch of the
-    fused model and coder codes every block's body as a lane."""
+    card runs the EOF BWT, MTF and RLE2, and the host (`bwtcp.head`)
+    codes the header on the block's fresh coder and hands its state
+    over; then one launch of the fused model and coder codes every
+    block's body as a lane, and `bwtcp.fetch` reads the streams back.
+    `first` is the first block's index in the file (the stages' label)."""
+    timer = stage_timer()
     bs = blocks[0].shape[0]
     heads, states, Ns, rows, counts = [], [], [], [], []
-    for b in blocks:
-        used, asize, remap = _block_meta(b)
-        U, pidx = bk.bwt_eof_block(torch.from_numpy(b.copy()).to(dev), bs)
-        out = BufferStream()
-        enc = RangeCoder(out)
-        enc.encode_start(0, 0)
-        host_bwtcp._write_header(enc, level, bs, int(pidx), used)
-        heads.append(out.get_buffer())
-        states.append(enc.export_enc_state())
-        Ns.append(asize + 2)              # model size asize + 1
-        dense = torch.from_numpy(remap).to(dev)[U.to(torch.int64)]
+    for k, b in enumerate(blocks):
+        blk = torch.from_numpy(b.copy()).to(dev)
+        timer.add('host_syncs')             # an upload from pageable memory
+        U, pidx = bk.bwt_eof_block(blk, bs)
+        with timer.stage('bwtcp.head', first + k):
+            used, asize, remap = _block_meta(b)
+            remap = torch.from_numpy(remap).to(dev)
+            out = BufferStream()
+            enc = RangeCoder(out)
+            enc.encode_start(0, 0)
+            host_bwtcp._write_header(enc, level, bs, int(pidx), used)
+            heads.append(out.get_buffer())
+            states.append(enc.export_enc_state())
+            Ns.append(asize + 2)              # model size asize + 1
+        timer.add('host_syncs', 2)          # the remap's upload, pidx read
+        dense = remap[U.to(torch.int64)]
         syms, cnt, _ = bk.rle2_encode(bk.mtf_encode(dense.to(torch.int32),
                                                     bs), bs, 0)
         rows.append(syms)
@@ -454,19 +462,23 @@ def _bwtcp_group(blocks, level, dev):
         (torch.stack(counts) - 1)[:, None]     # without the EOB slot
     del rows
     tok_cap = _bwtcp_tok_cap(bs)
+    Ns = torch.tensor(Ns, dtype=torch.int32, device=dev)
+    states = coder_states(np.stack(states), dev)
+    timer.add('host_syncs', 2)              # two uploads from pageable memory
     tokens, tok_n, nbytes = dm.fenwick_code_streams(
-        syms, valid, torch.tensor(Ns, dtype=torch.int32, device=dev),
-        dl.MAX_N, host_bwtcp.F_PROB_MAX, host_bwtcp.F_PROB_INCR,
-        coder_states(np.stack(states), dev), tok_cap)
+        syms, valid, Ns, dl.MAX_N, host_bwtcp.F_PROB_MAX,
+        host_bwtcp.F_PROB_INCR, states, tok_cap)
     del syms, valid
-    out_cap = bs + (bs >> 1) + 4096
-    byts, lens = dc.token_bytes(tokens, tok_n, nbytes, out_cap)
-    del tokens
-    tok_n, lens = tok_n.cpu().tolist(), lens.cpu().tolist()
-    byts = byts[:, :min(max(lens), out_cap)].cpu().numpy()
-    return [None if tok_n[k] > tok_cap or lens[k] > out_cap else
-            np.concatenate([heads[k], byts[k, :lens[k]]])
-            for k in range(len(blocks))]
+    with timer.stage('bwtcp.fetch'):
+        out_cap = bs + (bs >> 1) + 4096
+        byts, lens = dc.token_bytes(tokens, tok_n, nbytes, out_cap)
+        del tokens
+        tok_n, lens = tok_n.cpu().tolist(), lens.cpu().tolist()
+        byts = byts[:, :min(max(lens), out_cap)].cpu().numpy()
+        timer.add('host_syncs', 3)
+        return [None if tok_n[k] > tok_cap or lens[k] > out_cap else
+                np.concatenate([heads[k], byts[k, :lens[k]]])
+                for k in range(len(blocks))]
 
 
 def bwtcp_compress_device(data, output=None, level=9, batch=8,
@@ -482,31 +494,41 @@ def bwtcp_compress_device(data, output=None, level=9, batch=8,
     array), or writes it to `output` (a stream with write_byte) and
     returns it.  ``bwtcp_compress_device.last_stats`` counts the blocks
     of the last call by route."""
-    dev = _device(device, 'bwtcp_compress_device')
-    level = host_bwtcp._level_of(level)
-    data = _as_u8(data)
-    bs = level * 100000
-    blocks = host_bwtcp.split_blocks(data, bs)
+    timer = stage_timer()
+    with timer.stage('bwtcp.split'):
+        dev = _device(device, 'bwtcp_compress_device')
+        level = host_bwtcp._level_of(level)
+        data = _as_u8(data)
+        bs = level * 100000
+        blocks = host_bwtcp.split_blocks(data, bs)
+        full = [i for i, b in enumerate(blocks) if b.shape[0] == bs]
     stats = {'device_blocks': 0, 'host_blocks': 0, 'overflow_blocks': 0}
     bwtcp_compress_device.last_stats = stats
     if level <= 5:
         stats['host_blocks'] = len(blocks)
-        return host_bwtcp.BWTCP.compress_file(data, output, level)
-    full = [i for i, b in enumerate(blocks) if b.shape[0] == bs]
+        with timer.stage('bwtcp.host_block'):
+            result = host_bwtcp.BWTCP.compress_file(data, output, level)
+        timer.report()
+        return result
     payloads = [None] * len(blocks)
     for g in range(0, len(full), batch):
         idxs = full[g:g + batch]
-        for i, p in zip(idxs, _bwtcp_group([blocks[i] for i in idxs], level,
-                                           dev)):
-            payloads[i] = p
-            stats['device_blocks' if p is not None
-                  else 'overflow_blocks'] += 1
+        with timer.stage('bwtcp.group', g // batch):
+            for i, p in zip(idxs, _bwtcp_group(
+                    [blocks[i] for i in idxs], level, dev, idxs[0])):
+                payloads[i] = p
+                stats['device_blocks' if p is not None
+                      else 'overflow_blocks'] += 1
     for i, b in enumerate(blocks):
         if payloads[i] is None:
             if b.shape[0] != bs:
                 stats['host_blocks'] += 1
-            payloads[i] = host_bwtcp._encode_block(b, level)
-    return _container(host_bwtcp.MAGIC, level, payloads, data, output)
+            with timer.stage('bwtcp.host_block', i):
+                payloads[i] = host_bwtcp._encode_block(b, level)
+    with timer.stage('bwtcp.write'):
+        result = _container(host_bwtcp.MAGIC, level, payloads, data, output)
+    timer.report()
+    return result
 
 
 bwtcp_compress_device.last_stats = {}

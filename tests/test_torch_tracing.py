@@ -1,7 +1,8 @@
 """The port's own tracer, `parallel.profiling.StageTimer`: its stages and
-counters, the stages and counters of the three benchmarked entry points
-(``compress_file_device``, ``decompress_file_device`` and
-``bwtcl_decompress_device``), and the benchmark's readers of them.  The
+counters, the stages and counters of the four benchmarked entry points
+(``compress_file_device``, ``decompress_file_device``,
+``bwtcl_decompress_device`` and ``bwtcp_compress_device``), and the
+benchmark's readers of them.  The
 names and counts held here are the ones README lists."""
 
 import bz2
@@ -21,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host import bwtcl as hbwtcl
+from compressjs_tpu_torch.host import bwtcp as hbwtcp
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.ops import device_entropy
 from compressjs_tpu_torch import tracer
@@ -40,6 +42,8 @@ TOP = {
     'bwtcl': {'bwtcl.container', 'bwtcl.header', 'bwtcl.stage',
               'bwtcl.launch', 'bwtcl.wait', 'bwtcl.host_block',
               'bwtcl.write'},
+    'bwtcp': {'bwtcp.split', 'bwtcp.group', 'bwtcp.host_block',
+              'bwtcp.write'},
 }
 
 
@@ -297,6 +301,31 @@ def test_bwtcl_decode_stages_and_counters(sample5, timer):
     assert _covers(timer, 'bwtcl', wall) > 0.9
 
 
+def test_bwtcp_encode_stages_and_counters(timer):
+    """Three level-6 blocks, two to a dispatch, and a 50,000-byte tail:
+    G = 2 dispatches, D = 3 card blocks, H = 1 host block.  host_syncs 7
+    a card block + 2 x sort_rounds + 5 a dispatch here (the card's fused
+    kernel reads its error flag too: 6 there).  A short pattern repeated
+    keeps the plain Fenwick model and coder to ~900 steps a block."""
+    rng = np.random.default_rng(5)
+    pat = rng.integers(97, 123, 64, dtype=np.uint8).tobytes()
+    data = (pat * 30_000)[:1_850_000]
+    out, wall = _timed_call(lambda: cz.bwtcp_compress_device(
+        data, None, 6, batch=2, device='cpu'))
+    assert bytes(out) == bytes(hbwtcp.BWTCP.compress_file(data, None, 6))
+    G, D, H = 2, 3, 1
+    assert dict(timer.counts) == {
+        'bwtcp.split': 1, 'bwtcp.group': G, 'bwtcp.head': D,
+        'ops.bwt_eof_block': D, 'ops.mtf_encode': D,
+        'ops.fenwick_code_streams': G, 'bwtcp.fetch': G,
+        'bwtcp.host_block': H, 'bwtcp.write': 1}
+    rounds = timer.counters['sort_rounds']
+    assert rounds >= D
+    assert dict(timer.counters) == {
+        'sort_rounds': rounds, 'host_syncs': 7 * D + 2 * rounds + 5 * G}
+    assert _covers(timer, 'bwtcp', wall) > 0.9
+
+
 def test_entry_points_record_nothing_while_off(sample5, monkeypatch):
     t = profiling.StageTimer(enabled=False)
     monkeypatch.setattr(tracer, '_global_timer', t)
@@ -333,6 +362,8 @@ def _run(stage_totals, blocks):
      {'bwtcl.container': 0.004, 'bwtcl.header': 0.002,
       'bwtcl.stage': 0.006, 'bwtcl.launch': 1.0}, 3.0),
     ('host_route_ms_per_block.bwtcl', {'bwtcl.host_block': 0.12}, 30.0),
+    ('host_head_ms_per_block.bwtcp',
+     {'bwtcp.head': 0.008, 'bwtcp.group': 2.0}, 2.0),
 ])
 def test_stage_readers(name, totals, want):
     read = _reader(name).read
@@ -345,6 +376,7 @@ def test_stage_readers(name, totals, want):
     ('sort_rounds_per_block.encode', {'sort_rounds': 12}, 3.0),
     ('syncs_per_block.encode', {'host_syncs': 100, 'sort_rounds': 1}, 25.0),
     ('syncs_per_block.decode', {'host_syncs': 14}, 3.5),
+    ('syncs_per_block.bwtcp', {'host_syncs': 130, 'sort_rounds': 9}, 32.5),
     ('candidate_yield.decode',
      {'candidates_launched': 5, 'candidates_accepted': 4}, 80.0),
 ])
