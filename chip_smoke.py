@@ -7,14 +7,17 @@ Builds the CUDA kernels from ``compressjs_tpu_torch/csrc``, prints the
 MTF kernels' registers and stack frames, holds each kernel equal to its
 plain version on the card at main-path shapes (the MTF encode's three
 launches and its start lists on sample5's first block and on uniform
-symbols, the Huffman allocator on sorted tables and the fused table
-build, windowed compose, the staged selector chase at k = 10 and at the
-default k on sample5's first block and on every block of the sample5x4
-decode, the walk's two kernels (stages 1 and 4, ``cz_walk_maps`` and
-``cz_chunk_walk``) on sample5's first block and on a block at the
-largest caps of a -9 block, each beside the whole walk with its plain
-stages, the MTF undo's three launches and its start lists on sample5's
-first block and on zipf indices), times each MTF launch at 132, 528 and
+symbols, the sorts' and RLE2's max-scans (``csrc/seg_scan.cu``) against
+``torch.cummax`` at 899,981 and 8 x 899,981 elements, each timed beside
+its byte bound and the library call, the Huffman allocator on sorted
+tables and the fused table build, windowed compose, the staged selector
+chase at k = 10 and at the default k on sample5's first block and on
+every block of the sample5x4 decode, the walk's two kernels (stages 1
+and 4, ``cz_walk_maps`` and ``cz_chunk_walk``) on sample5's first block
+and on a block at the largest caps of a -9 block, each beside the whole
+walk with its plain stages, the MTF undo's three launches and its start
+lists on sample5's first block and on zipf indices), times each MTF
+launch at 132, 528 and
 all chunks and each whole MTF stage with its launches a call, times the
 latency probes that floor the chase and
 the allocator (one thread's chain from L2 and from shared memory, one
@@ -295,6 +298,61 @@ def check_mtf(dense):
     res['bound_ms'], res['bound_by'] = bound(
         4 * n * 2, 2 * n + int(want.long().sum()))
     return res
+
+
+def check_seg_scan(dev):
+    """csrc/seg_scan.cu's two entries against torch.cummax at a -9 block's
+    899,981 elements and at bwt_block_batch's 8 blocks of them, on random
+    flags (the sorts' group starts) and RLE2-shaped values: error, the C
+    entry's device ms alone (warm, and at 899,981 with a cold L2), the
+    wrapper's, the byte bound (input read once, n int64 written), the
+    plain version's ms (the code a CPU tensor takes, run on the card),
+    torch.cummax's alone on the same values, and the device kernels of
+    one wrapper call."""
+    from compressjs_tpu_torch.ops import _cuda
+    from compressjs_tpu_torch.ops import block_kernels as bk
+    lib = _cuda.lib()
+    stream = _cuda.stream_handle(dev)
+    rng = np.random.default_rng(22)
+    rows = {}
+    for n in (899981, 8 * 899981):
+        pos = torch.arange(n, device=dev)
+        flags = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+        seq = np.minimum(rng.zipf(1.3, n) - 1, 40)
+        vals = torch.from_numpy(np.where(seq == 0, 0, np.arange(n) + 1)).to(
+            dev)
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        agg = torch.empty(-(-n // bk.SCAN_TILE), dtype=torch.int64,
+                          device=dev)
+        starts = torch.where(flags, pos, 0)
+        for name, x, entry, wrapper, plain, lib_in, nbytes in (
+                ('group_start', flags, lib.cz_group_start, bk._seg_start,
+                 lambda: torch.cummax(torch.where(flags, pos, 0), 0).values,
+                 starts, 9 * n),
+                ('max_scan', vals, lib.cz_max_scan, bk._max_scan,
+                 lambda: torch.cummax(vals, 0).values, vals, 16 * n)):
+            def launch(entry=entry, x=x):
+                _cuda.check(entry(x.data_ptr(), n, out.data_ptr(),
+                                  agg.data_ptr(), stream), 'seg_scan')
+            want = plain()
+            launch()
+            err = int((out - want).abs().max())
+            err = max(err, int((wrapper(x) - want).abs().max()))
+            r = rows['%s n=%d' % (name, n)] = {
+                'err': err, 'ms': cuda_ms(launch, 200),
+                'wrapper_ms': cuda_ms(lambda: wrapper(x), 200),
+                'plain_ms': cuda_ms(plain, 10),
+                'library_ms': cuda_ms(lambda: torch.cummax(lib_in, 0), 10),
+                'kernels_per_call': kernels_launched(lambda: wrapper(x))}
+            if n == 899981:
+                r['cold_l2_ms'] = cuda_ms_cold(launch, 20, dev)
+            r['bound_ms'], r['bound_by'] = bound(nbytes, 0)
+    bad = {k: r for k, r in rows.items()
+           if r['err'] or r['kernels_per_call'] > 3}
+    if bad:
+        raise AssertionError('seg_scan kernels differ from torch.cummax or '
+                             'launch more than 3 kernels: %s' % bad)
+    return rows
 
 
 def adversarial_tables():
@@ -2291,6 +2349,18 @@ def main():
                                 r['plain_ms'], r['bound_ms'], r['bound_by'],
                                 r['occupancy_ms']))
 
+    phase('seg scan kernels vs torch.cummax')
+    seg = check_seg_scan(dev)
+    for name, r in seg.items():
+        print('  %s: kernel %.4f ms (cold L2 %s), wrapper %.4f ms, %d device '
+              'kernels a call; bound %.5f ms (%s); plain %.4f ms; '
+              'torch.cummax %.4f ms'
+              % (name, r['ms'], '%.4f ms' % r['cold_l2_ms']
+                 if 'cold_l2_ms' in r else '-', r['wrapper_ms'],
+                 r['kernels_per_call'], r['bound_ms'], r['bound_by'],
+                 r['plain_ms'], r['library_ms']))
+    seg_main = seg['group_start n=899981']
+
     phase('allocator kernels vs plain versions')
     builds = record_builds(
         lambda: cz.compress_file_device(s5, level=9, device='cuda'))
@@ -2447,7 +2517,8 @@ def main():
     if bz2.decompress(out) != s5x4:
         raise AssertionError('sample5x4 encode does not round-trip')
     if launches['mtf_scan'] != 3 * n_blocks or \
-            launches['code_lengths'] < n_blocks:
+            launches['code_lengths'] < n_blocks or \
+            launches['seg_scan'] < 2 * n_blocks:
         raise AssertionError('main path skipped a kernel: %s' % launches)
 
     phase('encode modes')
@@ -2711,6 +2782,21 @@ def main():
          'encode_ms_by_chunks': mtf_real['occupancy_ms'],
          'uniform_ms': mtf_rand['ms'], 'uniform_encode_ms': mtf_rand['step_ms'],
          'ptxas': {k: v for k, v in frames.items() if 'undo' not in k}},
+        {'name': 'seg_scan', 'route': 'cuda',
+         'source': 'compressjs_tpu_torch/csrc/seg_scan.cu',
+         'replaces': 'none: torch.cummax (the JAX package\'s '
+                     'lax.associative_scan, jax_kernels.py _seg_start and '
+                     'rle2_encode)',
+         'launches': total('seg_scan'),
+         'launches_by_path': by_path('seg_scan'),
+         'max_abs_err': max(r['err'] for r in seg.values()),
+         # cz_group_start at a -9 block: the sorts' call, 1 + rounds a block
+         'ms': seg_main['ms'], 'plain_ms': seg_main['plain_ms'],
+         'bound_ms': seg_main['bound_ms'], 'bound_by': seg_main['bound_by'],
+         'library_ms': seg_main['library_ms'],
+         'wrapper_ms': seg_main['wrapper_ms'],
+         'cold_l2_ms': seg_main['cold_l2_ms'],
+         'kernels_per_call': seg_main['kernels_per_call'], 'rows': seg},
         {'name': 'code_lengths', 'route': 'cuda',
          'source': 'compressjs_tpu_torch/csrc/alloc_lengths.cu',
          'replaces': 'compressjs_tpu/ops/device_entropy.py:238 (with the '

@@ -23,7 +23,8 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('mtf_scan.cu', 'alloc_lengths.cu', 'compose_windowed.cu',
            'selector_chase.cu', 'mtf_undo.cu', 'probes.cu',
-           'fenwick_encode.cu', 'fenwick_decode.cu', 'huffman_walk.cu')
+           'fenwick_encode.cu', 'fenwick_decode.cu', 'huffman_walk.cu',
+           'seg_scan.cu')
 # headers the sources include (part of the build's hash)
 HEADERS = ('fenwick_tree.cuh', 'range_coder.cuh')
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
@@ -40,7 +41,8 @@ launches = {'mtf_scan': 0, 'alloc_lengths': 0, 'code_lengths': 0,
             'compose_windowed': 0, 'selector_chase': 0, 'mtf_undo': 0,
             'chase_probe': 0, 'smem_chain_probe': 0, 'stage_probe': 0,
             'fenwick_encode': 0, 'range_encode': 0, 'fenwick_code': 0,
-            'fenwick_decode': 0, 'walk_maps': 0, 'chunk_walk': 0}
+            'fenwick_decode': 0, 'walk_maps': 0, 'chunk_walk': 0,
+            'seg_scan': 0}
 # what the last build did: wall seconds (0 if reused) and nvcc's messages
 # (the -Xptxas -v register and shared-memory lines, kept beside the
 # library for a later reuse)
@@ -155,6 +157,10 @@ def _bind(lib):
     lib.cz_chunk_walk.argtypes = [p, p, p, i32, p, p, p, p, i32, i32, i32,
                                   p, p, p]
     lib.cz_chunk_walk.restype = i32
+    lib.cz_max_scan.argtypes = [p, i64, p, p, p]
+    lib.cz_max_scan.restype = i32
+    lib.cz_group_start.argtypes = [p, i64, p, p, p]
+    lib.cz_group_start.restype = i32
     return lib
 
 

@@ -8,6 +8,12 @@ move-to-front and RLE2 (counterpart of ``compressjs_tpu.ops.jax_kernels``).
   `bwt_eof_block`) reads rank -1 past its end.  ``torch.sort`` takes one key,
   so every multi-key sort is built from stable sorts, least significant
   key first, over keys packed into int64.
+* `_seg_start` and `_max_scan` -- the inclusive max-scans of the sorts'
+  group starts (every seed and round) and of `rle2_encode` (two a
+  block).  For a CUDA tensor each is one call of ``csrc/seg_scan.cu``
+  (counted in ``_cuda.launches['seg_scan']``; it replaces no Pallas
+  kernel: the JAX package scans with ``lax.associative_scan``); for a
+  CPU tensor `torch.cummax`, the plain version.
 * `mtf_encode` -- chunked move-to-front: per-chunk start lists from a
   max-scan over last occurrences, then the chunks' scans.  For a CUDA
   tensor all of it is three launches of ``csrc/mtf_scan.cu`` (replacing
@@ -37,12 +43,51 @@ MAX_BLOCK = 1 << 20      # ranks and indices must pack into 20 bits
 GROUP_SIZE = 50          # symbols per Huffman selector
 GROUP_ROW = 260          # width of a group's row of the table matrices
 MAX_CODE_BITS = 20       # longest bzip2 Huffman code
+SCAN_TILE = 4096         # elements a tile of csrc/seg_scan.cu (fixed there)
+
+
+def _scan_launch(x, dtype, what):
+    """One call of csrc/seg_scan.cu's entry for `x` (a contiguous 1-D
+    CUDA tensor of `dtype`): (n,) int64 out."""
+    _cuda.require_cuda(x, what)
+    if x.dim() != 1 or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError('%s takes a contiguous 1-D %s tensor' % (what, dtype))
+    n = x.shape[0]
+    out = torch.empty(n, dtype=torch.int64, device=x.device)
+    # each tile's maximum, written by the first launch
+    agg = torch.empty(-(-n // SCAN_TILE), dtype=torch.int64, device=x.device)
+    lib = _cuda.lib()
+    entry = lib.cz_group_start if dtype == torch.bool else lib.cz_max_scan
+    _cuda.launches['seg_scan'] += 1
+    _cuda.check(entry(x.data_ptr(), n, out.data_ptr(), agg.data_ptr(),
+                      _cuda.stream_handle(x.device)), 'seg_scan')
+    return out
 
 
 def _seg_start(diff):
-    """Index of the current group's first element, per sorted slot."""
-    pos = torch.arange(diff.shape[0], device=diff.device)
-    return torch.cummax(torch.where(diff, pos, 0), 0).values
+    """Index of the current group's first element, per sorted slot:
+    out[i] = max{j <= i : diff[j]}, 0 where there is none (int64).
+
+    For a CUDA tensor (contiguous 1-D bool) it is one call of
+    ``csrc/seg_scan.cu``'s `cz_group_start`, two launches (one for at
+    most SCAN_TILE flags); for a CPU tensor `torch.cummax`; for a tensor
+    anywhere else it raises."""
+    if diff.device.type == 'cpu':
+        pos = torch.arange(diff.shape[0])
+        return torch.cummax(torch.where(diff, pos, 0), 0).values
+    return _scan_launch(diff, torch.bool, '_seg_start')
+
+
+def _max_scan(x):
+    """Inclusive running maximum of a 1-D int64 tensor (any values; the
+    callers' are positions in [0, 2^40)).
+
+    For a CUDA tensor (contiguous) it is one call of ``csrc/seg_scan.cu``'s
+    `cz_max_scan`, two launches (one for at most SCAN_TILE values); for a
+    CPU tensor `torch.cummax`; for a tensor anywhere else it raises."""
+    if x.device.type == 'cpu':
+        return torch.cummax(x, 0).values
+    return _scan_launch(x, torch.int64, '_max_scan')
 
 
 def _tied_count(diff):
@@ -384,7 +429,7 @@ def rle2_encode(mtf_seq, n, eob):
     idx = torch.arange(n, device=dev)
     is_zero = seq == 0
     # first index of the current zero run = 1 + last nonzero position
-    run_start = torch.cummax(torch.where(is_zero, 0, idx + 1), 0).values
+    run_start = _max_scan(torch.where(is_zero, 0, idx + 1))
     nxt_nonzero = torch.cat([seq[1:] != 0, is_zero.new_ones(1)])
     run_end = is_zero & nxt_nonzero
     run_len = torch.where(run_end, idx - run_start + 1, 0)
@@ -400,7 +445,7 @@ def rle2_encode(mtf_seq, n, eob):
     mark = torch.zeros(n + 2, dtype=torch.int64, device=dev)
     mark.scatter_reduce_(0, torch.where(out_count > 0, offsets, n + 1), idx,
                          'amax')
-    iat = torch.cummax(mark[:n + 1], 0).values
+    iat = _max_scan(mark[:n + 1])
     digit = (out_idx - offsets[iat]).clamp(0, 31)
     s = seq[iat]
     sym = torch.where(s != 0, s + 1, ((run_len[iat] + 1) >> digit) & 1)

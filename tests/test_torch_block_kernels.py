@@ -229,3 +229,32 @@ def test_device_huffman_group_helpers_match_jax(group_setup, cut):
     assert int(gt) == int(wt)
     assert gp.dtype == torch.uint8
     assert gp.numpy().tobytes() == np.asarray(wp).tobytes()
+
+
+def _scan_input(wrapper, n, seed):
+    rng = np.random.default_rng(seed)
+    if wrapper == '_seg_start':
+        return torch.from_numpy(rng.random(n) < 0.3)
+    return torch.from_numpy(rng.integers(0, 1 << 40, n))
+
+
+@pytest.mark.parametrize('wrapper', ['_seg_start', '_max_scan'])
+def test_seg_scan_cpu_takes_plain_version(wrapper):
+    """A CPU tensor takes torch.cummax: no kernel call is counted."""
+    x = _scan_input(wrapper, 3 * bk.SCAN_TILE + 5, 7)
+    before = _cuda.launches['seg_scan']
+    got = getattr(bk, wrapper)(x)
+    assert _cuda.launches['seg_scan'] == before
+    vals = (torch.where(x, torch.arange(x.shape[0]), 0)
+            if wrapper == '_seg_start' else x)
+    assert torch.equal(got, torch.cummax(vals, 0).values)
+
+
+@pytest.mark.parametrize('wrapper,dtype', [('_seg_start', torch.bool),
+                                           ('_max_scan', torch.int64)])
+def test_seg_scan_refuses_other_devices(wrapper, dtype):
+    x = torch.empty(1000, dtype=dtype, device='meta')
+    before = _cuda.launches['seg_scan']
+    with pytest.raises(RuntimeError):
+        getattr(bk, wrapper)(x)
+    assert _cuda.launches['seg_scan'] == before

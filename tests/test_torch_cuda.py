@@ -245,6 +245,163 @@ def test_bwt_block_batch_on_card_equals_rows(cuda):
         assert torch.equal(U[b], U_b) and int(pidx[b]) == int(p_b)
 
 
+# ---------------------------------------------------------------------------
+# csrc/seg_scan.cu: the sorts' group starts and RLE2's running maxima
+
+SCAN_SIZES = [1, 2, bk.SCAN_TILE - 1, bk.SCAN_TILE, bk.SCAN_TILE + 1, 899981,
+              (1 << 20) - 1, 8 * 899981]
+
+
+def _scan_case(kind, n):
+    """(flags, values) int64 of one named case: random flags and
+    positions, all flags set (values 0..n-1), only flag 0 (values 0), or
+    rle2_encode's shapes (its zero flags, its run_start input)."""
+    rng = np.random.default_rng(n)
+    idx = np.arange(n)
+    if kind == 'random':
+        return rng.random(n) < 0.3, rng.integers(0, 1 << 40, n)
+    if kind == 'all_true':
+        return np.ones(n, bool), idx
+    if kind == 'first_only':
+        flags = np.zeros(n, bool)
+        flags[0] = True
+        return flags, np.zeros(n, np.int64)
+    if kind == 'rle2':
+        seq = np.minimum(rng.zipf(1.3, n) - 1, 40)
+        seq[n // 3:n // 2] = 0
+        return seq == 0, np.where(seq == 0, 0, idx + 1)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize('kind', ['random', 'all_true', 'first_only',
+                                  'rle2'])
+@pytest.mark.parametrize('n', SCAN_SIZES)
+def test_seg_scan_kernels_match_cummax(cuda, n, kind):
+    flags, vals = _scan_case(kind, n)
+    d = torch.from_numpy(flags).to(cuda)
+    v = torch.from_numpy(vals.astype(np.int64)).to(cuda)
+    before = _cuda.launches['seg_scan']
+    got_start, got_max = bk._seg_start(d), bk._max_scan(v)
+    assert _cuda.launches['seg_scan'] == before + 2
+    pos = torch.arange(n, device=cuda)
+    assert torch.equal(got_start,
+                       torch.cummax(torch.where(d, pos, 0), 0).values)
+    assert torch.equal(got_max, torch.cummax(v, 0).values)
+
+
+@pytest.mark.parametrize('n', [5, bk.SCAN_TILE + 1, 899981])
+def test_seg_scan_kernels_unaligned_and_signed(cuda, n):
+    """Inputs 1 and 8 bytes off a 16-byte boundary take the kernels'
+    scalar accesses; the max-scan takes any int64."""
+    rng = np.random.default_rng(n)
+    flags = torch.from_numpy(rng.random(n + 1) < 0.01).to(cuda)[1:]
+    vals = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n + 1,
+                                         dtype=np.int64)).to(cuda)[1:]
+    pos = torch.arange(n, device=cuda)
+    assert torch.equal(bk._seg_start(flags),
+                       torch.cummax(torch.where(flags, pos, 0), 0).values)
+    assert torch.equal(bk._max_scan(vals), torch.cummax(vals, 0).values)
+
+
+def test_seg_scan_wrappers_reject_bad_input(cuda):
+    before = _cuda.launches['seg_scan']
+    for fn, bad in (
+            (bk._seg_start, torch.zeros(8, dtype=torch.int64, device=cuda)),
+            (bk._seg_start, torch.zeros((2, 8), dtype=torch.bool,
+                                        device=cuda)),
+            (bk._max_scan, torch.zeros(8, dtype=torch.int32, device=cuda)),
+            (bk._max_scan, torch.zeros(16, dtype=torch.int64,
+                                       device=cuda)[::2])):
+        with pytest.raises(ValueError):
+            fn(bad)
+    assert _cuda.launches['seg_scan'] == before
+
+
+@pytest.fixture(scope='module')
+def scan_blocks():
+    """sample5's first -9 block and an all-equal block (periodic: the
+    cyclic sort runs every round), with each path's CPU result."""
+    n = 899981
+    blocks = {'sample5': np.frombuffer(_sample5()[:n], np.uint8).copy(),
+              'equal': np.full(n, 7, np.uint8)}
+    cpu = {}
+    for name, b in blocks.items():
+        t = torch.from_numpy(b)
+        mtf = bk.mtf_encode(t.to(torch.int32), n)
+        cpu[name] = {'bwt_block': bk.bwt_block(t, n),
+                     'bwt_eof_block': bk.bwt_eof_block(t, n),
+                     'mtf': mtf, 'rle2_encode': bk.rle2_encode(mtf, n, 257)}
+    return n, blocks, cpu
+
+
+def _same(got, want):
+    return all(torch.equal(torch.as_tensor(g).cpu(), torch.as_tensor(w))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize('fn', ['bwt_block', 'bwt_eof_block', 'rle2_encode'])
+@pytest.mark.parametrize('block', ['sample5', 'equal'])
+def test_sorts_and_rle2_on_card_equal_cpu(cuda, scan_blocks, fn, block):
+    n, blocks, cpu = scan_blocks
+    if fn == 'rle2_encode':
+        got = bk.rle2_encode(cpu[block]['mtf'].to(cuda), n, 257)
+    else:
+        got = getattr(bk, fn)(torch.from_numpy(blocks[block]).to(cuda), n)
+    assert _same(got, cpu[block][fn])
+
+
+def test_bwt_block_batch_of_8_on_card_equals_cpu(cuda, scan_blocks):
+    n, blocks, cpu = scan_blocks
+    names = ['sample5', 'equal'] * 4
+    U, pidx = bk.bwt_block_batch(torch.from_numpy(np.stack(
+        [blocks[k] for k in names])).to(cuda), n)
+    for b, name in enumerate(names):
+        assert _same((U[b], pidx[b]), cpu[name]['bwt_block'])
+
+
+def _kernel_names(fn):
+    """Names of the device kernels one call of fn() launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith('Memcpy')
+            and not e.name.startswith('Memset')]
+
+
+def test_seg_scan_launches_per_sort_and_rle2(cuda, scan_blocks, monkeypatch):
+    """seg_scan counts one call per sort seed and round and two per
+    rle2_encode; no path launches torch.cummax's scan any more, and one
+    call is at most three device kernels."""
+    from compressjs_tpu_torch import tracer
+    n, blocks, cpu = scan_blocks
+    b = torch.from_numpy(blocks['sample5']).to(cuda)
+    batch = torch.from_numpy(np.stack([blocks['sample5'],
+                                       blocks['equal']])).to(cuda)
+    mtf = cpu['sample5']['mtf'].to(cuda)
+    for fn, per_round in ((lambda: bk.bwt_block(b, n), 1),
+                          (lambda: bk.bwt_eof_block(b, n), 1),
+                          (lambda: bk.bwt_block_batch(batch, n), 1),
+                          (lambda: bk.rle2_encode(mtf, n, 257), 0)):
+        timer = tracer.StageTimer(enabled=True)
+        monkeypatch.setattr(tracer, '_global_timer', timer)
+        before = _cuda.launches['seg_scan']
+        fn()
+        rounds = timer.counters['sort_rounds']
+        want = 1 + rounds if per_round else 2
+        assert _cuda.launches['seg_scan'] - before == want
+        assert not [k for k in _kernel_names(fn)
+                    if 'scan_innermost_dim_with_indices' in k]
+    flags = torch.from_numpy(np.random.default_rng(1).random(n) < 0.5)
+    flags, vals = flags.to(cuda), mtf.to(torch.int64)
+    for fn in (lambda: bk._seg_start(flags), lambda: bk._max_scan(vals)):
+        assert len(_kernel_names(fn)) <= 3
+
+
 @pytest.mark.parametrize('G,cap,blo,bhi', [
     (6, 8192, 2, 40), (2, 8192, 1, 20), (6, 8192, 33, 635),
     (1, 100, 1, 20), (6, 1 << 20, 4, 80)])
