@@ -170,9 +170,9 @@ def first_block_bwt(data, dev):
     the MTF kernel's input on the main path."""
     from compressjs_tpu_torch.host.rle1 import rle1_encode
     from compressjs_tpu_torch.ops.block_kernels import bwt_block
-    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    from compressjs_tpu_torch.host.bzip2 import block_meta
     block, _ = rle1_encode(np.frombuffer(data, np.uint8), 0, 899981)
-    _, _, remap = _block_meta(block)
+    _, _, remap = block_meta(block)
     U, _ = bwt_block(torch.from_numpy(block).to(dev), block.shape[0])
     return torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
 
@@ -1326,7 +1326,7 @@ def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches, extra=()):
     from compressjs_tpu_torch.host.bwt import bwtransform2
     from compressjs_tpu_torch.host.mtf_rle2 import mtf_rle2
     from compressjs_tpu_torch.parallel import mesh as pm
-    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    from compressjs_tpu_torch.host.bzip2 import split_blocks
     os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
     torch.cuda.set_device(0)
     paths, times = {}, {}
@@ -1362,7 +1362,7 @@ def mesh_phase(cz, s5x4, s5x4_comp, enc_launches, dec_launches, extra=()):
                     if got[k] != want[k]:
                         raise AssertionError('%s launched %s, not %s'
                                              % (name, got, want))
-            blocks = [b for b, _ in _split_blocks(
+            blocks = [b for b, _ in split_blocks(
                 np.frombuffer(s5x4, np.uint8), 899981)
                 if b.shape[0] == 899981]
             Us = np.zeros((len(blocks), 899981), np.uint8)
@@ -1640,9 +1640,9 @@ def bwtcp_lane(block, dev):
     from compressjs_tpu_torch.host.range_coder import RangeCoder
     from compressjs_tpu_torch.host.stream import BufferStream
     from compressjs_tpu_torch.ops import block_kernels as bk
-    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    from compressjs_tpu_torch.host.bzip2 import block_meta
     bs = block.shape[0]
-    used, asize, remap = _block_meta(block)
+    used, asize, remap = block_meta(block)
     U, pidx = bk.bwt_eof_block(torch.from_numpy(block.copy()).to(dev), bs)
     dense = torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
     syms, cnt, _ = bk.rle2_encode(bk.mtf_encode(dense, bs), bs, 0)
@@ -2282,7 +2282,7 @@ def main():
     sys.path.insert(0, ROOT)
     import compressjs_tpu_torch as cz
     from compressjs_tpu_torch.ops import _cuda
-    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    from compressjs_tpu_torch.host.bzip2 import split_blocks
     dev = torch.device('cuda')
 
     phase('card')
@@ -2509,7 +2509,8 @@ def main():
     out = cz.compress_file_device(s5x4, level=9, device='cuda')
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
-    n_blocks = len(_split_blocks(np.frombuffer(s5x4, np.uint8), 899981))
+    n_blocks = len(list(split_blocks(np.frombuffer(s5x4, np.uint8),
+                                     899981)))
     print('  %d bytes -> %d bytes, %d blocks, launches %s'
           % (len(s5x4), len(out), n_blocks, launches))
     if out != s5x4_comp:
@@ -2629,12 +2630,13 @@ def main():
 
     phase('parallel host decode')
     from compressjs_tpu_torch.parallel.decode import block_index
-    from compressjs_tpu_torch.parallel.pipeline import _split_blocks
+    from compressjs_tpu_torch.host.bzip2 import split_blocks
     for name, stream, want in (('sample5', s5_comp, s5),
                                ('sample5x4', s5x4_comp, s5x4)):
         # the golden's streams hold no false block magic
         starts = block_index(stream)
-        n_blocks = len(_split_blocks(np.frombuffer(want, np.uint8), 899981))
+        n_blocks = len(list(split_blocks(np.frombuffer(want, np.uint8),
+                                         899981)))
         if len(starts) != n_blocks or starts[0] != 32:
             raise AssertionError('block_index of %s: %s' % (name, starts))
         out, wall, got = run_counted(cz.decompress_file_parallel, stream)

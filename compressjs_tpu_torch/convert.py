@@ -10,6 +10,24 @@ import torch
 from .tracer import stage_timer
 
 
+def as_u8(data):
+    """bytes-like or array `data` as a contiguous uint8 array: what every
+    entry point takes in."""
+    return np.frombuffer(bytes(data), dtype=np.uint8) \
+        if not isinstance(data, np.ndarray) \
+        else np.ascontiguousarray(data, dtype=np.uint8)
+
+
+def checked_device(device, what):
+    """torch.device(device) for the entry point `what`; raises for 'cuda'
+    without a card."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("%s: CUDA is not available; pass device='cpu' to "
+                           'run on the CPU' % what)
+    return dev
+
+
 def block_inputs(block_u8, remap_i32, eob, device):
     """The numpy arrays ``compressjs_tpu.ops.device_entropy.
     encode_block_full(block, n, remap, eob)`` takes, as this package's

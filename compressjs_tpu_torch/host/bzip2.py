@@ -27,9 +27,13 @@ symbol loop (``host.bzip2_decode.decode_symbols_plain``, sequential).
 Format errors raise `Bzip2Error` (a ValueError) with an `Err` code and
 the JAX codec's message at each site (``host.bzip2_parse._throw``).
 
-`_block_header` and `_finish_block` are also the host entropy stage of
-the card's encoders (``parallel.pipeline``, ``parallel.mesh``,
-``parallel.hetero``).
+The stream's layout is written here once for every bzip2 encoder of the
+package, this codec and the card's (``parallel.pipeline``,
+``parallel.mesh``, ``parallel.hetero``): the level's block size
+(`block_size_of`), the RLE1 split with each block's CRC (`split_blocks`),
+a block's alphabet (`block_meta`) and the framing around the blocks
+(`StreamWriter`).  `_block_header` and `_finish_block` are also the card
+encoders' host entropy stage.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 
 from . import huffman_stages as hs
-from .bits import SQRTPI, WHOLEPI, BitArrayWriter
+from .bits import SQRTPI, WHOLEPI, BitArrayWriter, BitWriter
 from .bwt import bwtransform2, inverse_bwt
 from .bzip2_decode import _decode_one_block, _read_block_header
 from .bzip2_parse import Err, _BitReader, _start, _throw
@@ -61,6 +65,66 @@ PARALLEL_MIN_BYTES = 65536
 
 # ===========================================================================
 # encoder
+
+def block_size_of(level):
+    """The RLE1 block size of level `level` (1-9; ValueError for another):
+    the reference shaves 19 bytes so that block cuts line up in the common
+    case of no run at the block's edge."""
+    if not 1 <= level <= 9:
+        raise ValueError('Invalid block size multiplier')
+    return level * 100000 - 19
+
+
+def split_blocks(data, block_size):
+    """The host RLE1 pass over the uint8 array `data`, block by block as
+    it goes: (packed block, CRC of the input bytes it holds)."""
+    start = 0
+    while start < data.shape[0]:
+        block, consumed = rle1_encode(data, start, block_size)
+        if block.shape[0] == 0 or consumed == 0:
+            break
+        yield block, crc32_bzip2(data[start:start + consumed])
+        # mid-stream blocks may be short of block_size (the RLE1 count
+        # byte's back-off defers a byte), so the input position ends it
+        start += consumed
+
+
+def block_meta(block):
+    """(used-byte mask, alphabet size, byte -> dense symbol remap)."""
+    used = np.zeros(256, dtype=bool)
+    used[block] = True
+    alphabet = np.nonzero(used)[0]
+    remap = np.zeros(256, dtype=np.int32)
+    remap[alphabet] = np.arange(len(alphabet))
+    return used, len(alphabet), remap
+
+
+class StreamWriter:
+    """The stream's framing around its blocks, written to `out` (default a
+    ``host.bits.BitWriter``; the codec's own ``host.stream.BitStream``):
+    the magic with the level, each block's magic, CRC and bits, then the
+    end magic and the blocks' CRCs combined."""
+
+    def __init__(self, level, out=None):
+        self.out = BitWriter() if out is None else out
+        self.crc = 0
+        self.out.write_bits(32, int.from_bytes(b'BZh' + bytes([48 + level]),
+                                               'big'))
+
+    def block(self, crc, *bits):
+        """One block: its CRC, then its bit arrays in order."""
+        self.crc = stream_crc_combine(self.crc, crc)
+        self.out.write_bits(48, WHOLEPI)
+        self.out.write_bits(32, crc)
+        for b in bits:
+            self.out.write_bit_array(b)
+
+    def end(self):
+        """The stream's end; returns `out`."""
+        self.out.write_bits(48, SQRTPI)
+        self.out.write_bits(32, self.crc)
+        return self.out
+
 
 def _ref_ties_default():
     """Whether COMPRESSJS_TPU_BZ2_REF_TIES asks for the reference's
@@ -125,13 +189,12 @@ def bwt_stage(block):
 
 def entropy_stage_bits(block, U, pidx, native_body=True):
     """Everything of a block after its magic and CRC, as 0/1 bits."""
-    used = np.zeros(256, dtype=bool)
-    used[block] = True
+    used, alphabet_size, _ = block_meta(block)
     alphabet = np.flatnonzero(used).astype(np.uint8)
     scan = mtf_rle2 if native_body else mtf_rle2_plain
-    syms, freq = scan(U, alphabet, len(alphabet))
+    syms, freq = scan(U, alphabet, alphabet_size)
     header, (payload, bits) = _finish_block(block, pidx, syms, len(syms),
-                                            freq, len(alphabet), used)
+                                            freq, alphabet_size, used)
     return np.concatenate([header, np.unpackbits(payload, count=bits)])
 
 
@@ -154,36 +217,25 @@ def compress_file(input_data, output=None, props=None, native_body=True):
     writes it to `output` (a stream with write_byte) and returns it."""
     in_stream = coerce_input_stream(input_data)
     o = coerce_output_stream(output)
-    out = BitStream(o.stream)
     level = 9
     if isinstance(props, (int, float)) and not isinstance(props, bool):
         level = int(props)
-    if level < 1 or level > 9:
-        raise ValueError('Invalid block size multiplier')
-    # the reference shaves 19 bytes so that block cuts line up in the
-    # common case of no run at the block's edge
-    block_size = level * 100000 - 19
-    for ch in b'BZh':
-        out.write_byte(ch)
-    out.write_byte(ord('0') + level)
+    block_size = block_size_of(level)
+    stream = StreamWriter(level, BitStream(o.stream))
     data = _read_input(in_stream)
 
     workers = max(1, min(8, os.cpu_count() or 1))
     split_stages = -(-data.shape[0] // block_size) <= 3 * workers
 
-    def bwt_job(block, start, consumed):
-        crc = crc32_bzip2(data[start:start + consumed])
-        return (crc, block) + bwt_stage(block)
+    def ent_job(block, U, pidx):
+        return entropy_stage_bits(block, U, pidx, native_body)
 
-    def ent_job(crc, block, U, pidx):
-        return crc, entropy_stage_bits(block, U, pidx, native_body)
+    def whole_job(block):
+        return ent_job(block, *bwt_stage(block))
 
-    def whole_job(block, start, consumed):
-        return ent_job(*bwt_job(block, start, consumed))
-
-    def chain_ent(ex, bwt_fut):
-        """A future of ent_job(*bwt_fut.result()), submitted once the
-        BWT is done (no worker waits on another)."""
+    def chain_ent(ex, block, bwt_fut):
+        """A future of ent_job(block, *bwt_fut.result()), submitted once
+        the BWT is done (no worker waits on another)."""
         outf = Future()
 
         def on_bwt(f):
@@ -191,7 +243,7 @@ def compress_file(input_data, output=None, props=None, native_body=True):
                 outf.set_exception(f.exception())
                 return
             try:
-                nxt = ex.submit(ent_job, *f.result())
+                nxt = ex.submit(ent_job, block, *f.result())
             except RuntimeError as e:   # the pool shut down on an error
                 outf.set_exception(e)
                 return
@@ -202,40 +254,24 @@ def compress_file(input_data, output=None, props=None, native_body=True):
         bwt_fut.add_done_callback(on_bwt)
         return outf
 
-    stream_crc = 0
     with ThreadPoolExecutor(workers) as ex:
         inflight = deque()
 
-        def drain(fut):
-            nonlocal stream_crc
-            crc, bits = fut.result()
-            stream_crc = stream_crc_combine(stream_crc, crc)
-            out.write_bits(48, WHOLEPI)
-            out.write_bits(32, crc)
-            out.write_bit_array(bits)
+        def drain():
+            crc, fut = inflight.popleft()
+            stream.block(crc, fut.result())
 
-        start = 0
-        done = False
-        while not done:
-            block, consumed = rle1_encode(data, start, block_size)
-            # a block may be short mid-stream (the RLE1 count byte's
-            # back-off), so the input position ends the loop
-            start += consumed
-            done = consumed == 0 or start >= data.shape[0]
-            if block.shape[0] > 0:
-                if split_stages:
-                    inflight.append(chain_ent(ex, ex.submit(
-                        bwt_job, block, start - consumed, consumed)))
-                else:
-                    inflight.append(ex.submit(whole_job, block,
-                                              start - consumed, consumed))
+        for block, crc in split_blocks(data, block_size):
+            if split_stages:
+                fut = chain_ent(ex, block, ex.submit(bwt_stage, block))
+            else:
+                fut = ex.submit(whole_job, block)
+            inflight.append((crc, fut))
             while len(inflight) > workers + 1:
-                drain(inflight.popleft())
+                drain()
         while inflight:
-            drain(inflight.popleft())
-    out.write_bits(48, SQRTPI)
-    out.write_bits(32, stream_crc)
-    out.flush()
+            drain()
+    stream.end().flush()
     return o.retval
 
 

@@ -35,7 +35,7 @@ import os
 import numpy as np
 import torch
 
-from ..convert import decode_tables
+from ..convert import as_u8, checked_device, decode_tables
 from ..host.bits import SQRTPI, WHOLEPI
 from ..host.bzip2_decode import _decode_one_block, _read_block_header
 from ..host.bzip2_parse import (MAGIC_BYTES, _BitReader, _parse_block_header,
@@ -46,7 +46,6 @@ from ..host.rle1 import rle1_decode
 from ..ops.device_huffman import MAX_CODE_BITS, block_bytes, bwt_column, \
     huffman_walk_dev, tables_for_device
 from .mesh import make_mesh, sharded_ragged_inverse_bwt
-from .pipeline import _as_u8, _device
 from .profiling import stage_timer
 
 # The most bits a block takes from its magic to the end of its EOB code.
@@ -169,8 +168,8 @@ def decompress_file_device(data, output=None, device='cuda'):
     header, broken block chain, block or stream CRC mismatch)."""
     timer = stage_timer()
     with timer.stage('decode.scan'):
-        device = _device(device, 'decompress_file_device')
-        data = _as_u8(data)
+        device = checked_device(device, 'decompress_file_device')
+        data = as_u8(data)
         parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)
@@ -294,7 +293,7 @@ def _check_stream_crc(data, end, crcs):
 def block_index(data):
     """Every bit position of the block magic in `data`: the candidate
     block starts (each points at the magic itself)."""
-    return _scan_magic(_as_u8(data), MAGIC_BYTES)
+    return _scan_magic(as_u8(data), MAGIC_BYTES)
 
 
 def _parse_at(data, pos, dbuf_size):
@@ -358,7 +357,7 @@ def decompress_file_parallel(input_data, output=None, n_workers=None,
     if executor not in ('thread', 'process'):
         raise ValueError("executor must be 'thread' or 'process', not %r"
                          % (executor,))
-    data = _as_u8(input_data)
+    data = as_u8(input_data)
     parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)
@@ -406,7 +405,7 @@ def decompress_file_mesh(input_data, output=None, mesh=None, n_workers=None,
         raise ValueError("entropy must be 'host' or 'device', not %r"
                          % (entropy,))
     mesh = mesh if mesh is not None else make_mesh()
-    data = _as_u8(input_data)
+    data = as_u8(input_data)
     parsed = _parse_candidates(data)
     if parsed is None:
         return _emit(_empty_stream(data), output)

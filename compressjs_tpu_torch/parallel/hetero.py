@@ -51,13 +51,10 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..host.bits import SQRTPI, WHOLEPI, BitWriter
-from ..host.bwt import bwtransform2
-from ..host.crc32 import crc32_bzip2, stream_crc_combine
-from ..host.mtf_rle2 import mtf_rle2
-from ..host.rle1 import rle1_encode
-from .pipeline import DeviceBzip2Encoder, _as_u8, _block_bits, \
-    _block_meta, _finish_block
+from ..convert import as_u8
+from ..host.bzip2 import (StreamWriter, block_meta, block_size_of,
+                          compress_block_bits, split_blocks)
+from .pipeline import DeviceBzip2Encoder
 
 
 class _Scheduler:
@@ -225,7 +222,7 @@ def warm_device(level=9, mode='full', device='cuda'):
     the native runtime before a timed run; returns the stream.  (The JAX
     package's fetch-bucket warm-up has nothing to warm here: the port
     compiles nothing per payload size.)"""
-    block_size = level * 100000 - 19
+    block_size = block_size_of(level)
     words = (b'the quick brown fox jumps over the lazy dog ',
              b'pack my box with five dozen liquor jugs ',
              b'0123456789 abcdefghijklmnopqrstuvwxyz ')
@@ -252,18 +249,15 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
     blocks stolen, claims denied.
 
     `_encoder_factory` is a test hook: it returns an object with the
-    encoder's `_submit`, `_fetch_full`, `_cancel` and `close` in place of
-    the encoder."""
+    encoder's `submit` and `close` in place of the encoder."""
     if device is not None:
         device = torch.device(device)
         if device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("hetero_compress_bzip2: CUDA is not "
                                "available; pass device='cpu' to run on the "
                                "CPU, or device=None for the host alone")
-    if not 1 <= level <= 9:
-        raise ValueError('Invalid block size multiplier')
-    data = _as_u8(data)
-    block_size = level * 100000 - 19
+    block_size = block_size_of(level)
+    data = as_u8(data)
     blocks = []   # grows as the feeder splits (appends under the GIL;
     #               workers only index entries the scheduler handed out)
     sched = _Scheduler(
@@ -292,33 +286,14 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
 
     def feeder():
         """The incremental RLE1 split, in the native runtime."""
-        start = 0
-        n = data.shape[0]
         try:
-            while start < n:
-                block, consumed = rle1_encode(data, start, block_size)
-                if block.shape[0] == 0 or consumed == 0:
-                    break
-                crc = crc32_bzip2(data[start:start + consumed])
-                blocks.append((block, crc))
+            for block_and_crc in split_blocks(data, block_size):
+                blocks.append(block_and_crc)
                 sched.feed(len(blocks) - 1)
-                start += consumed
         finally:
             sched.close(len(blocks))
             with res_ready:              # wake the assembly loop so it
                 res_ready.notify_all()   # can observe the close
-
-    meta_cache = {}
-    meta_lock = threading.Lock()
-
-    def meta(i):
-        with meta_lock:
-            m = meta_cache.get(i)
-        if m is None:
-            m = _block_meta(blocks[i][0])
-            with meta_lock:
-                meta_cache[i] = m
-        return m
 
     def publish(i, r, source, t0):
         with res_ready:
@@ -329,20 +304,6 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
                 events.append((i, source, t0, time.perf_counter(), fresh))
             res_ready.notify_all()
         return fresh
-
-    def host_block(i):
-        block, _ = blocks[i]
-        used, alphabet_size, _ = meta(i)
-        n = block.shape[0]
-        U = np.zeros(n, dtype=np.uint8)
-        pidx = bwtransform2(block, U, n)
-        alphabet = np.flatnonzero(used).astype(np.uint8)
-        syms, freq = mtf_rle2(U, alphabet, alphabet_size)
-        header, (payload, bits) = _finish_block(
-            block, pidx, syms, len(syms), freq, alphabet_size, used)
-        # the final bit array is built here, in the worker: the ordered
-        # assembly loop is the serial stage
-        return np.concatenate([header, np.unpackbits(payload, count=bits)])
 
     # Thread priority split (Linux: niceness is per thread, so
     # os.setpriority with who=0 affects the calling thread only).  The
@@ -369,7 +330,9 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
             if i is None:
                 return
             t0 = time.perf_counter()
-            r = host_block(i)
+            # the final bit array is built here, in the worker: the
+            # ordered assembly loop is the serial stage
+            r = compress_block_bits(blocks[i][0])
             if not was_steal:
                 sched.host_finished(time.perf_counter() - t0)
             publish(i, r, 'steal' if was_steal else 'host', t0)
@@ -384,16 +347,12 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
                     i = sched.try_claim_device()
                     if i is None:
                         break
-                    used, alphabet_size, remap = meta(i)
-                    inflight.append((i, enc._submit(blocks[i][0],
-                                                    alphabet_size, remap),
+                    block = blocks[i][0]
+                    inflight.append((i, enc.submit(block, block_meta(block)),
                                      time.perf_counter()))
                 if inflight:
-                    i, handle, t_claim = inflight.popleft()
-                    res = enc._fetch_full(handle)
-                    used, alphabet_size, _ = meta(i)
-                    header, payload, bits = _block_bits(
-                        blocks[i][0], used, alphabet_size, res)
+                    i, job, t_claim = inflight.popleft()
+                    header, payload, bits = job.bits()
                     r = np.concatenate(
                         [header, np.unpackbits(payload, count=bits)])
                     sched.device_finished(i, t_claim)
@@ -409,9 +368,8 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
             # every block is assembled: drop the queued device work, and
             # fetch the blocks that ran or are running, so their errors
             # are raised
-            ran = [h for _, h, _ in inflight if not enc._cancel(h)]
-            for handle in ran:
-                enc._fetch_full(handle)
+            for job in [j for _, j, _ in inflight if not j.cancel()]:
+                job.bits()
         finally:
             enc.close()
 
@@ -428,9 +386,7 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
 
     # ordered assembly while the workers run (host workers produce blocks
     # in file order, so this streams; only tail blocks wait on the device)
-    out = BitWriter()
-    out.write_bits(32, int.from_bytes(b'BZh' + bytes([48 + level]), 'big'))
-    stream_crc = 0
+    stream = StreamWriter(level)
     i = 0
     try:
         while True:
@@ -444,14 +400,9 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
                 if i not in results:
                     break                    # past the last block
                 bits = results.pop(i)
-            crc = blocks[i][1]
+            stream.block(blocks[i][1], bits)
             i += 1
-            stream_crc = stream_crc_combine(stream_crc, crc)
-            out.write_bits(48, WHOLEPI)
-            out.write_bits(32, crc)
-            out.write_bit_array(bits)
-        out.write_bits(48, SQRTPI)
-        out.write_bits(32, stream_crc)
+        stream.end()
     finally:
         # every block is assembled (or the call fails): stop the device
         # worker and wait for the block it is running, so that no launch
@@ -474,7 +425,7 @@ def hetero_compress_bzip2(data, output=None, level=9, host_workers=2,
     with res_ready:
         if errors:
             raise errors[0]
-    result = out.getvalue()
+    result = stream.out.getvalue()
     if output is None:
         return result
     output.write(result)

@@ -25,15 +25,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..convert import block_inputs
-from ..host.bits import SQRTPI, WHOLEPI, BitWriter
-from ..host.crc32 import stream_crc_combine
+from ..convert import as_u8, block_inputs
+from ..host.bzip2 import (StreamWriter, _ref_ties_default, block_meta,
+                          block_size_of, split_blocks)
 from ..ops.block_decode import (inverse_bwt_block, inverse_bwt_block_masked,
                                 inverse_bwt_eof_block)
 from ..ops.block_kernels import bwt_eof_block, encode_block_core
 from ..ops.device_entropy import GROUP_SIZE, encode_block_full
-from .pipeline import (_as_u8, _block_meta, _device_block_header,
-                       _finish_block, _ref_ties_default, _split_blocks)
+from .pipeline import block_bits, device_stage
 
 # NCCL and gloo move no int16: such a tensor travels as int32 and comes
 # back in its own type
@@ -105,17 +104,9 @@ def _ring_order(n_blocks, n_dev):
 
 def prepare_blocks(raw_blocks):
     """Host prep: dense-alphabet remap tables and EOB symbols per block."""
-    remaps = []
-    eobs = []
-    for b in raw_blocks:
-        used = np.zeros(256, dtype=bool)
-        used[b] = True
-        remap = np.zeros(256, dtype=np.int32)
-        remap[np.nonzero(used)[0]] = np.arange(int(used.sum()))
-        remaps.append(remap)
-        eobs.append(int(used.sum()) + 1)
-    return (np.stack(raw_blocks), np.stack(remaps),
-            np.asarray(eobs, dtype=np.int32))
+    metas = [block_meta(b) for b in raw_blocks]
+    return (np.stack(raw_blocks), np.stack([m[2] for m in metas]),
+            np.asarray([m[1] + 1 for m in metas], dtype=np.int32))
 
 
 class _Shares:
@@ -206,23 +197,6 @@ def sharded_block_encode_full(mesh, blocks, remaps, eobs):
             head[:, 3], head[:, 1])
 
 
-def _ref_ties_tail(block, mesh):
-    """(header bits, payload bits) of the short tail block with the
-    reference's grouping: its sort, BWT, MTF and RLE2 on this rank's
-    device, its Huffman stage on the host (`_finish_block`)."""
-    used, alphabet_size, remap = _block_meta(block)
-    blk, remap_t, eob = block_inputs(block, remap, alphabet_size + 1,
-                                     mesh.device)
-    pidx, syms, count, freq = encode_block_core(blk, blk.shape[0], remap_t,
-                                                eob)
-    count = int(count)
-    header, (payload, bits) = _finish_block(
-        block, int(pidx), syms[:count].cpu().numpy().astype(np.uint16),
-        count, freq.cpu().numpy().astype(np.int64), alphabet_size, used,
-        ref_ties=True)
-    return header, np.unpackbits(payload, count=bits)
-
-
 def mesh_compress_bzip2(mesh, data, level=9):
     """bzip2-compress `data` with its blocks' whole encode sharded over
     `mesh` (`sharded_block_encode_full`), then the ordered assembly on
@@ -231,45 +205,31 @@ def mesh_compress_bzip2(mesh, data, level=9):
     the same bytes, byte-identical to
     ``compressjs_tpu.codecs.bzip2.compress_file``.  The short tail block
     takes the same device stage, on the rank that owns it; while
-    COMPRESSJS_TPU_BZ2_REF_TIES is set every rank encodes it itself with
-    the host Huffman stage (`_ref_ties_tail`), whose grouping follows the
-    variable, as the JAX mesh's host tail does."""
-    if not 1 <= level <= 9:
-        raise ValueError('Invalid block size multiplier')
-    data = _as_u8(data)
-    block_size = level * 100000 - 19
-    blocks = _split_blocks(data, block_size)
-    metas = [_block_meta(block) for block, _ in blocks]
+    COMPRESSJS_TPU_BZ2_REF_TIES is set every rank encodes it itself, as
+    ``DeviceBzip2Encoder`` does: the device stage of its 'core' route,
+    then the host Huffman stage, whose grouping follows the variable, as
+    the JAX mesh's host tail does."""
+    block_size = block_size_of(level)
+    blocks = list(split_blocks(as_u8(data), block_size))
+    metas = [block_meta(block) for block, _ in blocks]
     n_dev = len(blocks)
     if blocks and blocks[-1][0].shape[0] != block_size \
             and _ref_ties_default():
         n_dev -= 1
-    out = BitWriter()
-    out.write_bits(32, int.from_bytes(b'BZh' + bytes([48 + level]), 'big'))
-    stream_crc = 0
     if n_dev:
         pidx, payload, bits, lens, g, sel, count, _ = (
             t.cpu().numpy() for t in sharded_block_encode_full(
                 mesh, [b for b, _ in blocks[:n_dev]],
                 [m[2] for m in metas[:n_dev]],
                 [m[1] + 1 for m in metas[:n_dev]]))
-    for i, ((block, crc), (used, alphabet_size, _)) in enumerate(
-            zip(blocks, metas)):
-        if i < n_dev:
-            header = _device_block_header(int(pidx[i]), lens[i], int(g[i]),
-                                          sel[i], int(count[i]),
-                                          alphabet_size, used)
-            payload_bits = np.unpackbits(payload[i], count=int(bits[i]))
-        else:
-            header, payload_bits = _ref_ties_tail(block, mesh)
-        stream_crc = stream_crc_combine(stream_crc, crc)
-        out.write_bits(48, WHOLEPI)
-        out.write_bits(32, crc)
-        out.write_bit_array(header)
-        out.write_bit_array(payload_bits)
-    out.write_bits(48, SQRTPI)
-    out.write_bits(32, stream_crc)
-    return out.getvalue()
+    stream = StreamWriter(level)
+    for i, ((block, crc), meta) in enumerate(zip(blocks, metas)):
+        res = ('full', int(pidx[i]), payload[i], int(bits[i]), lens[i],
+               int(g[i]), sel[i], int(count[i])) if i < n_dev \
+            else device_stage(block, meta, 'core', mesh.device)
+        header, pay, nbits = block_bits(block, meta, res)
+        stream.block(crc, header, np.unpackbits(pay, count=nbits))
+    return stream.end().getvalue()
 
 
 def sharded_block_decode(mesh, Us, pidxs, eof=False):
@@ -311,7 +271,7 @@ def mesh_compress_bwtcp(mesh, data, level=9):
     Every rank is called with the same data and returns the same bytes,
     byte for byte the host codec's."""
     from ..host import bwtcp
-    data = _as_u8(data)
+    data = as_u8(data)
     bs = bwtcp._level_of(level) * 100000
     n_full = len(data) // bs
     pre = {}

@@ -1,8 +1,11 @@
 """bzip2 encoder with the block transforms on the GPU (counterpart of
 ``compressjs_tpu.parallel.pipeline.DeviceBzip2Encoder``).
 
-The host packs RLE1 blocks and computes their CRCs.  Then each block
-goes to the device in one of three splits:
+The host packs RLE1 blocks and computes their CRCs, and writes the
+stream around the blocks, as every bzip2 encoder of the package does
+(``host.bzip2``: `split_blocks`, `block_meta`, `StreamWriter`).  Then
+each block goes to the device in one of three splits (`device_stage`;
+the host's side of each is `block_bits`):
 
 * ``'full'`` (the default): the whole block encode on the device --
   sort, BWT, MTF, RLE2, group optimisation, payload packing
@@ -19,7 +22,10 @@ goes to the device in one of three splits:
 The host stages run in the native runtime (``native``).  A worker
 thread runs each block's device work and downloads its results, in
 block order, while the calling thread runs the host stage of the block
-before; both drop the GIL for their native work.  With
+before; both drop the GIL for their native work.
+`DeviceBzip2Encoder.submit` queues one block there and returns its job,
+whose `bits()` gives the block's header and payload: the encoder's own
+`compress` and ``parallel.hetero``'s device worker both drive it.  With
 ``self_check=True`` every block's device BWT is held against the host
 transform (``host.bwt.bwtransform2``): U and pidx in ``'hybrid'``, pidx
 in the others.
@@ -57,18 +63,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..convert import block_inputs, coder_states
+from ..convert import as_u8, block_inputs, checked_device, coder_states
 from ..host import bwt as host_bwt
 from ..host import bwtc as host_bwtc
 from ..host import bwtcl as host_bwtcl
 from ..host import bwtcp as host_bwtcp
-from ..host.bits import SQRTPI, WHOLEPI, BitWriter
 from ..host.bwt import bwtransform2
-from ..host.bzip2 import _block_header, _finish_block, _ref_ties_default
-from ..host.crc32 import crc32_bzip2, stream_crc_combine
+from ..host.bzip2 import (StreamWriter, _block_header, _finish_block,
+                          _ref_ties_default, block_meta, block_size_of,
+                          split_blocks)
 from ..host.mtf_rle2 import mtf_rle2
 from ..host.range_coder import RangeCoder
-from ..host.rle1 import rle1_encode
 from ..host.stream import (ArrayInputStream, BufferStream,
                            coerce_output_stream)
 from ..host.util import compress_file_helper, read_unsigned_number
@@ -82,48 +87,6 @@ from .profiling import stage_timer
 MODES = ('full', 'core', 'hybrid')
 
 
-def _split_blocks(data, block_size):
-    """Host RLE1 pass: list of (packed_block, crc)."""
-    out = []
-    start = 0
-    n = data.shape[0]
-    while start < n:
-        block, consumed = rle1_encode(data, start, block_size)
-        if block.shape[0] == 0 or consumed == 0:
-            break
-        out.append((block, crc32_bzip2(data[start:start + consumed])))
-        # mid-stream blocks may be short of block_size (the RLE1
-        # count-byte back-off defers a byte), so stop by input position
-        start += consumed
-    return out
-
-
-def _device(device, what):
-    """torch.device(device); raises for 'cuda' without a card."""
-    dev = torch.device(device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("%s: CUDA is not available; pass device='cpu' to "
-                           'run on the CPU' % what)
-    return dev
-
-
-def _as_u8(data):
-    """bytes-like or array `data` as a contiguous uint8 array."""
-    return np.frombuffer(bytes(data), dtype=np.uint8) \
-        if not isinstance(data, np.ndarray) \
-        else np.ascontiguousarray(data, dtype=np.uint8)
-
-
-def _block_meta(block):
-    """(used-byte mask, alphabet size, byte -> dense symbol remap)."""
-    used = np.zeros(256, dtype=bool)
-    used[block] = True
-    alphabet = np.nonzero(used)[0]
-    remap = np.zeros(256, dtype=np.int32)
-    remap[alphabet] = np.arange(len(alphabet))
-    return used, len(alphabet), remap
-
-
 def _device_block_header(pidx, lens, n_groups, sel, count, alphabet_size,
                          used):
     """`_block_header` from the matrices encode_block_full downloads."""
@@ -133,11 +96,49 @@ def _device_block_header(pidx, lens, n_groups, sel, count, alphabet_size,
                          [lens[g, :m] for g in range(n_groups)])
 
 
-def _block_bits(block, used, alphabet_size, res):
-    """The host side of one block from its `_device_stage` result `res`:
+def device_stage(block, meta, mode, device, index=None):
+    """One block's device work in `mode` on `device`, downloaded:
+    ('full', pidx, payload, bits, lens, n_groups, sel, count), ('core',
+    pidx, syms, count, freq) or ('hybrid', pidx, U).  `meta` is the
+    block's ``host.bzip2.block_meta``; `index`, the block's place in the
+    stream, labels its stages."""
+    _, alphabet_size, remap = meta
+    timer = stage_timer()
+    with timer.stage('encode.device', index):
+        n = block.shape[0]
+        with timer.stage('encode.upload', index):
+            blk, remap_t, eob = block_inputs(block, remap, alphabet_size + 1,
+                                             device)
+        if mode == 'full':
+            pidx, payload, bits, lens, g, sel, count, _ = \
+                encode_block_full(blk, n, remap_t, eob)
+            with timer.stage('encode.wait', index):
+                res = ('full', int(pidx), payload.cpu().numpy(), bits,
+                       lens.cpu().numpy(), g, sel.cpu().numpy(), count)
+            timer.add('host_syncs', 4)
+        elif mode == 'core':
+            pidx, syms, count, freq = bk.encode_block_core(
+                blk, n, remap_t, eob)
+            with timer.stage('encode.wait', index):
+                count = int(count)
+                res = ('core', int(pidx),
+                       syms[:count].cpu().numpy().astype(np.uint16),
+                       count, freq.cpu().numpy().astype(np.int64))
+            timer.add('host_syncs', 4)
+        else:
+            U, pidx = bk.bwt_block(blk, n)
+            with timer.stage('encode.wait', index):
+                res = ('hybrid', int(pidx), U.cpu().numpy())
+            timer.add('host_syncs', 2)
+    return res
+
+
+def block_bits(block, meta, res):
+    """The host side of one block from its `device_stage` result `res`:
     (header bits, payload bytes, payload bit count).  'full' leaves only
     the header to write; 'core' and 'hybrid' run the Huffman stages
     (and for 'hybrid' MTF and RLE2) here."""
+    used, alphabet_size, _ = meta
     if res[0] == 'full':
         _, pidx, payload, bits, lens, g, sel, count = res
         return (_device_block_header(pidx, lens, g, sel, count,
@@ -154,6 +155,34 @@ def _block_bits(block, used, alphabet_size, res):
     return header, payload, bits
 
 
+class _BlockJob:
+    """One block queued on a `DeviceBzip2Encoder` (its `submit`)."""
+
+    def __init__(self, enc, block, meta, future, row=None):
+        self._enc, self._block, self._meta = enc, block, meta
+        self._future, self._row = future, row
+
+    def cancel(self):
+        """Drop the block's device work if it has not started; False where
+        it ran or is running (`bits` then waits for it)."""
+        return self._future.cancel()
+
+    def bits(self):
+        """Wait for the block's device work and run its host stage:
+        (header bits, payload bytes, payload bit count).  An error of the
+        device work is raised here."""
+        timer = stage_timer()
+        with timer.stage('device wait+fetch'):
+            res = self._future.result()
+            if self._row is not None:
+                res = res[self._row]
+        if self._enc.self_check:
+            self._enc._check_block(self._block, res)
+        with timer.stage('host header stage' if res[0] == 'full'
+                         else 'host entropy stage'):
+            return block_bits(self._block, self._meta, res)
+
+
 class DeviceBzip2Encoder:
     """bzip2 encoder whose block transforms run on `device` ('cuda'
     unless the caller asks for 'cpu'; the CPU runs every kernel's plain
@@ -163,61 +192,29 @@ class DeviceBzip2Encoder:
 
     def __init__(self, level=9, mode='full', self_check=False, batch=False,
                  device='cuda'):
-        if not 1 <= level <= 9:
-            raise ValueError('Invalid block size multiplier')
+        self.block_size = block_size_of(level)
         if mode not in MODES:
             raise ValueError('mode must be one of %s, not %r'
                              % (', '.join(MODES), mode))
-        self.device = _device(device, 'DeviceBzip2Encoder')
+        self.device = checked_device(device, 'DeviceBzip2Encoder')
         self.level = level
-        self.block_size = level * 100000 - 19
         self.mode = mode
         self.self_check = self_check
         self.batch = batch
         self._pool = None
 
-    def _device_stage(self, block, alphabet_size, remap, index=None):
-        """One block's device work, downloaded: ('full', pidx, payload,
-        bits, lens, n_groups, sel, count), ('core', pidx, syms, count,
-        freq) or ('hybrid', pidx, U).  While COMPRESSJS_TPU_BZ2_REF_TIES
-        is set, 'full' runs the short tail block as 'core', so that its
-        Huffman stage takes the reference's grouping on the host (the
-        device group optimisation has no such switch, in either package;
-        the JAX encoder sends the tail to the host).  `index`, the
-        block's place in the stream, labels its stages."""
-        timer = stage_timer()
-        with timer.stage('encode.device', index):
-            n = block.shape[0]
-            with timer.stage('encode.upload', index):
-                blk, remap_t, eob = block_inputs(block, remap,
-                                                 alphabet_size + 1,
-                                                 self.device)
-            mode = self.mode
-            if (mode == 'full' and n != self.block_size
-                    and _ref_ties_default()):
-                mode = 'core'
-            if mode == 'full':
-                pidx, payload, bits, lens, g, sel, count, _ = \
-                    encode_block_full(blk, n, remap_t, eob)
-                with timer.stage('encode.wait', index):
-                    res = ('full', int(pidx), payload.cpu().numpy(), bits,
-                           lens.cpu().numpy(), g, sel.cpu().numpy(), count)
-                timer.add('host_syncs', 4)
-            elif mode == 'core':
-                pidx, syms, count, freq = bk.encode_block_core(
-                    blk, n, remap_t, eob)
-                with timer.stage('encode.wait', index):
-                    count = int(count)
-                    res = ('core', int(pidx),
-                           syms[:count].cpu().numpy().astype(np.uint16),
-                           count, freq.cpu().numpy().astype(np.int64))
-                timer.add('host_syncs', 4)
-            else:
-                U, pidx = bk.bwt_block(blk, n)
-                with timer.stage('encode.wait', index):
-                    res = ('hybrid', int(pidx), U.cpu().numpy())
-                timer.add('host_syncs', 2)
-        return res
+    def _device_stage(self, block, meta, index=None):
+        """`device_stage` in the encoder's mode.  While
+        COMPRESSJS_TPU_BZ2_REF_TIES is set, 'full' runs the short tail
+        block as 'core', so that its Huffman stage takes the reference's
+        grouping on the host (the device group optimisation has no such
+        switch, in either package; the JAX encoder sends the tail to the
+        host)."""
+        mode = self.mode
+        if (mode == 'full' and block.shape[0] != self.block_size
+                and _ref_ties_default()):
+            mode = 'core'
+        return device_stage(block, meta, mode, self.device, index)
 
     def _batch_stage(self, blocks):
         """'hybrid' device work of equal-length blocks in one call:
@@ -238,30 +235,27 @@ class DeviceBzip2Encoder:
         returns `output`."""
         timer = stage_timer()
         with timer.stage('encode.split'):
-            data = _as_u8(data)
-            blocks = _split_blocks(data, self.block_size)
+            data = as_u8(data)
+            blocks = list(split_blocks(data, self.block_size))
         # one worker: the device stages run in block order, each while
         # the calling thread runs the host stage of the block before
         try:
             with timer.stage('encode.queue'):
-                metas = [_block_meta(block) for block, _ in blocks]
+                metas = [block_meta(block) for block, _ in blocks]
                 full_rows = [i for i, (b, _) in enumerate(blocks)
                              if b.shape[0] == self.block_size]
                 use_batch = (self.batch and self.mode == 'hybrid'
                              and len(full_rows) > 1)
-                results = []
                 if use_batch:
                     batch = self._worker().submit(
                         self._batch_stage, [blocks[i][0] for i in full_rows])
                     row_of = {i: r for r, i in enumerate(full_rows)}
-                for i, ((block, _), (_, alphabet_size, remap)) in enumerate(
-                        zip(blocks, metas)):
-                    if use_batch and i in row_of:
-                        results.append((batch, row_of[i]))
-                    else:
-                        results.append((self._submit(block, alphabet_size,
-                                                     remap, i), None))
-            return self._assemble(blocks, metas, results, output)
+                jobs = [_BlockJob(self, block, meta, batch, row_of[i])
+                        if use_batch and i in row_of
+                        else self.submit(block, meta, i)
+                        for i, ((block, _), meta) in enumerate(
+                            zip(blocks, metas))]
+            return self._assemble([crc for _, crc in blocks], jobs, output)
         finally:
             self.close()
 
@@ -272,24 +266,15 @@ class DeviceBzip2Encoder:
             self._pool = ThreadPoolExecutor(1)
         return self._pool
 
-    def _submit(self, block, alphabet_size, remap, index=None):
-        """Queue one block's device work (`_device_stage`) on the worker
-        thread, behind the blocks queued before it; returns a handle for
-        `_fetch_full`.  (The JAX encoder's `_submit` dispatches the same
-        work asynchronously.)"""
-        return self._worker().submit(self._device_stage, block,
-                                     alphabet_size, remap, index)
-
-    def _fetch_full(self, handle):
-        """Wait for a `_submit` handle: the block's `_device_stage`
-        result.  An error of the device work is raised here."""
-        return handle.result()
-
-    def _cancel(self, handle):
-        """Drop a `_submit` handle's device work if it has not started;
-        False where it ran or is running (`_fetch_full` then waits for
-        it)."""
-        return handle.cancel()
+    def submit(self, block, meta, index=None):
+        """Queue the device work of `block` (RLE1-packed; `meta` its
+        ``host.bzip2.block_meta``) on the worker thread, behind the blocks
+        queued before it.  Returns its job: `bits()` waits for it and
+        gives the block's header bits, payload bytes and payload bit
+        count; `cancel()` drops it if it has not started.  (The JAX
+        encoder's `_submit` dispatches the same work asynchronously.)"""
+        return _BlockJob(self, block, meta, self._worker().submit(
+            self._device_stage, block, meta, index))
 
     def close(self):
         """Drop the device work still queued, wait for the block that is
@@ -298,33 +283,16 @@ class DeviceBzip2Encoder:
             self._pool.shutdown(cancel_futures=True)
             self._pool = None
 
-    def _assemble(self, blocks, metas, results, output):
+    def _assemble(self, crcs, jobs, output):
         timer = stage_timer()
         with timer.stage('encode.write'):
-            out = BitWriter()
-            out.write_bits(32, int.from_bytes(
-                b'BZh' + bytes([48 + self.level]), 'big'))
-        stream_crc = 0
-        for (block, crc), (used, alphabet_size, _), (fut, row) in zip(
-                blocks, metas, results):
-            with timer.stage('device wait+fetch'):
-                res = fut.result() if row is None else fut.result()[row]
-            if self.self_check:
-                self._check_block(block, res)
-            with timer.stage('host header stage' if res[0] == 'full'
-                             else 'host entropy stage'):
-                header, payload, bits = _block_bits(block, used,
-                                                    alphabet_size, res)
+            stream = StreamWriter(self.level)
+        for crc, job in zip(crcs, jobs):
+            header, payload, bits = job.bits()
             with timer.stage('encode.write'):
-                stream_crc = stream_crc_combine(stream_crc, crc)
-                out.write_bits(48, WHOLEPI)
-                out.write_bits(32, crc)
-                out.write_bit_array(header)
-                out.write_bit_array(np.unpackbits(payload, count=bits))
+                stream.block(crc, header, np.unpackbits(payload, count=bits))
         with timer.stage('encode.write'):
-            out.write_bits(48, SQRTPI)
-            out.write_bits(32, stream_crc)
-            result = out.getvalue()
+            result = stream.end().getvalue()
             if output is not None:
                 output.write(result)
         timer.report()
@@ -363,7 +331,7 @@ class DeviceBWTCEncoder:
     def __init__(self, level=9, device='cuda'):
         if not 1 <= level <= 9:
             raise ValueError('invalid level')
-        self.device = _device(device, 'DeviceBWTCEncoder')
+        self.device = checked_device(device, 'DeviceBWTCEncoder')
         self.level = level
         self.block_size = level * 100000
 
@@ -378,7 +346,7 @@ class DeviceBWTCEncoder:
         see ``host.stream``) and returns `output`.  No worker outlives
         the call: the device work still queued is dropped and the block
         that runs is waited for."""
-        data = _as_u8(data)
+        data = as_u8(data)
         bs = self.block_size
 
         # the codec's transform pool calls the hook from several threads
@@ -441,7 +409,7 @@ def _bwtcp_group(blocks, level, dev, first=0):
         timer.add('host_syncs')             # an upload from pageable memory
         U, pidx = bk.bwt_eof_block(blk, bs)
         with timer.stage('bwtcp.head', first + k):
-            used, asize, remap = _block_meta(b)
+            used, asize, remap = block_meta(b)
             remap = torch.from_numpy(remap).to(dev)
             out = BufferStream()
             enc = RangeCoder(out)
@@ -496,9 +464,9 @@ def bwtcp_compress_device(data, output=None, level=9, batch=8,
     of the last call by route."""
     timer = stage_timer()
     with timer.stage('bwtcp.split'):
-        dev = _device(device, 'bwtcp_compress_device')
+        dev = checked_device(device, 'bwtcp_compress_device')
         level = host_bwtcp._level_of(level)
-        data = _as_u8(data)
+        data = as_u8(data)
         bs = level * 100000
         blocks = host_bwtcp.split_blocks(data, bs)
         full = [i for i, b in enumerate(blocks) if b.shape[0] == bs]
@@ -546,10 +514,10 @@ def bwtcl_compress_device(data, output=None, level=9, lanes=None,
     ``host.bwtcl.BWTCL.compress_file``.  Returns as
     `bwtcp_compress_device`; ``bwtcl_compress_device.last_stats`` counts
     the blocks of the last call by route."""
-    dev = _device(device, 'bwtcl_compress_device')
+    dev = checked_device(device, 'bwtcl_compress_device')
     lanes = lanes or host_bwtcl.LANES
     level = host_bwtcp._level_of(level)
-    data = _as_u8(data)
+    data = as_u8(data)
     bs = level * 100000
     _, tok_cap, lane_cap = dl.lane_caps(bs, lanes)
     flat_cap = bs + (bs >> 1) + 4096
@@ -561,7 +529,7 @@ def bwtcl_compress_device(data, output=None, level=9, lanes=None,
             stats['host_blocks'] += 1
             payloads.append(host_bwtcl.encode_block(b, lanes))
             continue
-        used, asize, remap = _block_meta(b)
+        used, asize, remap = block_meta(b)
         pidx, S, lens, flat, total, max_tok = dl.encode_block_lanes(
             torch.from_numpy(b.copy()).to(dev), bs, lanes,
             torch.from_numpy(remap).to(dev).to(torch.int64), asize)
@@ -597,8 +565,8 @@ def bwtcl_decompress_device(data, output=None, device='cuda'):
     the blocks of the last call by route."""
     timer = stage_timer()
     with timer.stage('bwtcl.container'):
-        dev = _device(device, 'bwtcl_decompress_device')
-        ins = ArrayInputStream(_as_u8(data))
+        dev = checked_device(device, 'bwtcl_decompress_device')
+        ins = ArrayInputStream(as_u8(data))
         for ch in host_bwtcl.MAGIC:
             if ins.read_byte() != ord(ch):
                 raise ValueError('bad magic')

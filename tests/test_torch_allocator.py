@@ -14,6 +14,7 @@ from compressjs_tpu.ops import device_entropy as de_j
 from compressjs_tpu_torch.host import huffman_allocator as ha
 from compressjs_tpu_torch.ops import _cuda
 from compressjs_tpu_torch.ops import device_entropy as de_t
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 N = de_t.N
 

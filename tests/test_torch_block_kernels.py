@@ -12,6 +12,7 @@ from compressjs_tpu.ops import jax_kernels as jk
 from compressjs_tpu.ops import pallas_kernels as pk
 from compressjs_tpu_torch.ops import _cuda
 from compressjs_tpu_torch.ops import block_kernels as bk
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _text_like(rng, n):

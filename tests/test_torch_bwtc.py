@@ -22,6 +22,7 @@ from compressjs_tpu_torch.host.range_coder import RangeCoder
 from compressjs_tpu_torch.host.stream import (ArrayInputStream, BufferStream,
                                               Stream)
 from compressjs_tpu_torch.parallel import pipeline
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 

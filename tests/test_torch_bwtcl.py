@@ -23,6 +23,7 @@ from compressjs_tpu_torch import native
 from compressjs_tpu_torch.host import bwtcl as hbwtcl
 from compressjs_tpu_torch.ops import device_lane as dl
 from compressjs_tpu_torch.parallel import pipeline
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 

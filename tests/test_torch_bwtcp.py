@@ -18,6 +18,7 @@ from compressjs_tpu.codecs import bwtcp as jbwtcp
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host import bwtcp as hbwtcp
 from compressjs_tpu_torch.parallel import pipeline
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -17,6 +17,7 @@ import pytest
 import compressjs_tpu as jcz
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host import bzip2 as pbz
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 N_FLIPS, N_CUTS = 30, 20     # seeded corruptions of each stream

@@ -19,6 +19,7 @@ import torch
 
 from compressjs_tpu import cli as jcli
 from compressjs_tpu_torch import cli
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden')

@@ -14,6 +14,7 @@ from compressjs_tpu.ops import device_huffman as jdh
 from compressjs_tpu.ops.pallas_compose import compose_windowed as pallas
 from compressjs_tpu_torch.ops import compose as cm
 from compressjs_tpu_torch.ops import device_huffman as dh
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _case(seed, G, cap, blo, bhi):

@@ -24,6 +24,7 @@ from compressjs_tpu_torch.ops import compose as cm
 from compressjs_tpu_torch.ops import device_entropy as de
 from compressjs_tpu_torch.ops import device_huffman as dh
 from compressjs_tpu_torch.parallel import decode as dec
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 pytestmark = pytest.mark.cuda
 

@@ -15,6 +15,7 @@ from compressjs_tpu.codecs import bzip2 as jbz
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.parallel import decode as dec
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 

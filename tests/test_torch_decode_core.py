@@ -16,6 +16,7 @@ from compressjs_tpu.ops import rle as jrle
 from compressjs_tpu_torch import convert
 from compressjs_tpu_torch.ops import block_decode as bd
 from compressjs_tpu_torch.ops import device_huffman as dh
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _rle2_case(kind):

@@ -19,6 +19,7 @@ from compressjs_tpu_torch.convert import coder_states
 from compressjs_tpu_torch.host.range_coder import RangeCoder
 from compressjs_tpu_torch.host.stream import BufferStream
 from compressjs_tpu_torch.ops import device_coder as dc
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _host_encode(triples, first_byte, init_len, coder=RangeCoder,

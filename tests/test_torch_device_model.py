@@ -24,6 +24,7 @@ from compressjs_tpu_torch.host.range_coder import RangeCoder
 from compressjs_tpu_torch.host.stream import ArrayInputStream, BufferStream
 from compressjs_tpu_torch.ops import device_coder as dc
 from compressjs_tpu_torch.ops import device_model as dm
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 INCR = 0x100
 

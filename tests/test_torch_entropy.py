@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from compressjs_tpu.ops import device_entropy as de_j
 from compressjs_tpu_torch.ops import device_entropy as de_t
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 N = de_t.N
 

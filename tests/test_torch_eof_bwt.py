@@ -18,6 +18,7 @@ from compressjs_tpu_torch.host import bwt as hbwt
 from compressjs_tpu_torch.host import mtf as hmtf
 from compressjs_tpu_torch.ops import block_decode as bd
 from compressjs_tpu_torch.ops import block_kernels as bk
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _text_like(seed, n):

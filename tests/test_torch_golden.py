@@ -6,6 +6,7 @@ import os
 import pytest
 
 import compressjs_tpu_torch as cz
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 

@@ -17,10 +17,12 @@ import torch
 
 from compressjs_tpu.codecs import bzip2 as jbz
 import compressjs_tpu_torch as cz
-from compressjs_tpu_torch.host.bwt import bwtransform2
+from compressjs_tpu_torch.host import bzip2 as pbz
 from compressjs_tpu_torch.parallel import hetero
 from compressjs_tpu_torch.parallel.hetero import _Scheduler, \
     hetero_compress_bzip2
+from compressjs_tpu_torch.parallel.pipeline import block_bits
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 
@@ -45,8 +47,9 @@ def _corpus(nbytes):
 
 class HostComputed:
     """Device stand-in whose results the host computes (a 'hybrid'
-    result from the native BWT): byte-exact by construction, with a
-    controllable fetch latency."""
+    result from the native BWT, through the encoder's host stage
+    ``pipeline.block_bits``): byte-exact by construction, with a
+    controllable wait in each job's `bits`."""
 
     def __init__(self, fetch_delay=0.0):
         self.fetch_delay = fetch_delay
@@ -54,21 +57,31 @@ class HostComputed:
         self.cancelled = 0
         self.closed = False
 
-    def _submit(self, block, alphabet_size, remap):
+    def submit(self, block, meta):
         self.submitted.append(block.shape[0])
-        return block
+        return _Job(self, block, meta)
 
-    def _fetch_full(self, block):
+    def fetch(self, block, meta):
         time.sleep(self.fetch_delay)
-        U = np.zeros(block.shape[0], np.uint8)
-        return ('hybrid', bwtransform2(block, U, block.shape[0]), U)
-
-    def _cancel(self, block):
-        self.cancelled += 1      # the work happens in the fetch: none ran
-        return True
+        U, pidx = pbz.bwt_stage(block)
+        return block_bits(block, meta, ('hybrid', pidx, U))
 
     def close(self):
         self.closed = True
+
+
+class _Job:
+    """A stand-in's queued block: its work happens in `bits`."""
+
+    def __init__(self, enc, block, meta):
+        self.enc, self.block, self.meta = enc, block, meta
+
+    def bits(self):
+        return self.enc.fetch(self.block, self.meta)
+
+    def cancel(self):
+        self.enc.cancelled += 1      # the work happens in bits: none ran
+        return True
 
 
 class Stuck(HostComputed):
@@ -81,7 +94,7 @@ class Stuck(HostComputed):
 class Failing(HostComputed):
     """A device whose work fails (after `fetch_delay` seconds)."""
 
-    def _fetch_full(self, block):
+    def fetch(self, block, meta):
         time.sleep(self.fetch_delay)
         raise RuntimeError('device lost')
 

@@ -10,6 +10,7 @@ from compressjs_tpu.ops import huffman_stages as hs
 from compressjs_tpu.ops import rle as rle_ref
 from compressjs_tpu.utils import crc32 as crc_ref
 from compressjs_tpu_torch.host import bits, crc32, huffman_stages, rle1
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 @pytest.mark.parametrize('data', [b'', b'a', b'hello world' * 1000,

@@ -29,6 +29,7 @@ from compressjs_tpu_torch.host import mtf as pmtf
 from compressjs_tpu_torch.host import rle as prle
 from compressjs_tpu_torch.utils import CRC32, crc32, freeze
 from tests.test_bwt import CYCLIC_CASES, _adversarial_cases, sufcheck
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 SIZES = [1, 2, 17, 1000, 4096, 4097, 20000]

@@ -18,6 +18,7 @@ from compressjs_tpu.ops import device_huffman as jdh
 from compressjs_tpu_torch import convert
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.ops import device_huffman as dh
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _text_like(seed, n):

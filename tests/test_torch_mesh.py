@@ -24,6 +24,7 @@ from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.host.bwt import bwtransform, bwtransform2
 from compressjs_tpu_torch.ops import block_decode as bd
 from compressjs_tpu_torch.parallel import mesh as pm
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden')

@@ -14,8 +14,10 @@ from compressjs_tpu.ops import bwt as bwt_ref
 from compressjs_tpu.ops import jax_kernels as jk
 from compressjs_tpu.parallel import pipeline as pipeline_ref
 import compressjs_tpu_torch as cz
+from compressjs_tpu_torch.host import bzip2 as pbz
 from compressjs_tpu_torch.ops import block_kernels as bk
-from compressjs_tpu_torch.parallel import pipeline, profiling
+from compressjs_tpu_torch.parallel import profiling
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 
 def _text(seed, n):
@@ -66,15 +68,15 @@ def test_finish_block_matches_jax(kind):
             .astype(np.uint8)
     else:
         data = np.array([7], np.uint8)
-    block, _ = pipeline._split_blocks(data, 99981)[0]
-    used, alphabet_size, _ = pipeline._block_meta(block)
+    block, _ = next(pbz.split_blocks(data, 99981))
+    used, alphabet_size, _ = pbz.block_meta(block)
     U = np.zeros(block.shape[0], np.uint8)
     pidx = bwt_ref.bwtransform2(block, U, block.shape[0], 256)
     alphabet = np.flatnonzero(used).astype(np.uint8)
     syms, freq = bzip2_ref.mtf_rle2(U, alphabet, alphabet_size)
     want_bits, (want_pay, want_n) = pipeline_ref._finish_block(
         block, pidx, syms, len(syms), freq, alphabet_size, used)
-    got_bits, (got_pay, got_n) = pipeline._finish_block(
+    got_bits, (got_pay, got_n) = pbz._finish_block(
         block, pidx, syms, len(syms), freq, alphabet_size, used)
     np.testing.assert_array_equal(got_bits, want_bits)
     np.testing.assert_array_equal(got_pay, want_pay)

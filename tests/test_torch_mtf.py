@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from compressjs_tpu.ops import jax_kernels as jk
 from compressjs_tpu_torch.ops import block_decode as bd
 from compressjs_tpu_torch.ops import block_kernels as bk
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 # the encode's chunks (any length gives the same codes) and the decode's
 # (an index outside the list makes the decode depend on them: the JAX
@@ -274,11 +275,11 @@ def model_decode(idx, n, check_lists=False):
 def _sample5_block():
     """Dense BWT of sample5's first -9 block (the encode's MTF input)."""
     from compressjs_tpu_torch.host.rle1 import rle1_encode
-    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    from compressjs_tpu_torch.host.bzip2 import block_meta
     with open(os.path.join(GOLDEN, 'sample5_bzip2_9.bz2'), 'rb') as f:
         data = bz2.decompress(f.read())
     block, _ = rle1_encode(np.frombuffer(data, np.uint8), 0, 899981)
-    _, _, remap = _block_meta(block)
+    _, _, remap = block_meta(block)
     U, _ = bk.bwt_block(torch.from_numpy(block), block.shape[0])
     return remap[U.numpy()].astype(np.int32)
 

@@ -17,6 +17,7 @@ from compressjs_tpu_torch.host import bwt, mtf_rle2, rle1
 from compressjs_tpu_torch.host import bzip2_decode as hd
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.host import huffman_stages as hs
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 CASES = ['runs', 'cut_runs', 'edge4', 'constant', 'periodic', 'one_byte']
 

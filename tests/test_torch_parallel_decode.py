@@ -18,6 +18,7 @@ from compressjs_tpu.utils.crc32 import stream_crc_combine
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.parallel import decode as dec
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'golden')
 

@@ -13,6 +13,7 @@ import torch
 from compressjs_tpu.codecs import bzip2 as bzip2_ref
 import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.parallel import pipeline
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

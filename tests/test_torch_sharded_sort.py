@@ -20,6 +20,7 @@ import compressjs_tpu_torch as cz
 from compressjs_tpu_torch.host.bwt import cyclic_suffix_array
 from compressjs_tpu_torch.parallel.sharded_sort import \
     sharded_cyclic_suffix_sort
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

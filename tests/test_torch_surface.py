@@ -25,6 +25,7 @@ import importlib
 import inspect
 
 import pytest
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 HOST = {
     'compressjs_tpu': 'compressjs_tpu_torch',

@@ -27,6 +27,7 @@ from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.ops import device_entropy
 from compressjs_tpu_torch import tracer
 from compressjs_tpu_torch.parallel import profiling
+from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden')

@@ -118,12 +118,12 @@ def sample5_inputs(dev):
     """(dense BWT of sample5's first block, int32 on dev)."""
     from compressjs_tpu_torch.host.rle1 import rle1_encode
     from compressjs_tpu_torch.ops.block_kernels import bwt_block
-    from compressjs_tpu_torch.parallel.pipeline import _block_meta
+    from compressjs_tpu_torch.host.bzip2 import block_meta
     with open(os.path.join(HERE, 'tests', 'golden', 'sample5_bzip2_9.bz2'),
               'rb') as f:
         data = bz2.decompress(f.read())
     block, _ = rle1_encode(np.frombuffer(data, np.uint8), 0, BLOCK)
-    _, _, remap = _block_meta(block)
+    _, _, remap = block_meta(block)
     U, _ = bwt_block(torch.from_numpy(block).to(dev), block.shape[0])
     return torch.from_numpy(remap).to(dev)[U.long()].to(torch.int32)
 
