@@ -57,6 +57,7 @@ whose device result passes its caps is coded again on the host
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -394,13 +395,13 @@ def _bwtcp_tok_cap(bs):
 
 
 def _bwtcp_group(blocks, level, dev, first=0):
-    """The full blocks of one dispatch as BWTC-P block streams, or None
-    for a block whose tokens or bytes pass their caps.  Per block the
-    card runs the EOF BWT, MTF and RLE2, and the host (`bwtcp.head`)
-    codes the header on the block's fresh coder and hands its state
-    over; then one launch of the fused model and coder codes every
-    block's body as a lane, and `bwtcp.fetch` reads the streams back.
-    `first` is the first block's index in the file (the stages' label)."""
+    """The per-block work of one dispatch of full blocks, on the calling
+    thread: per block the card runs the EOF BWT, MTF and RLE2, and the
+    host (`bwtcp.head`) codes the header on the block's fresh coder and
+    hands its state over.  Returns the coder's inputs (`_bwtcp_code`):
+    the headers' bytes, and the lanes' symbols, valid steps, model sizes
+    and coder states on `dev`.  `first` is the first block's index in
+    the file (the stages' label)."""
     timer = stage_timer()
     bs = blocks[0].shape[0]
     heads, states, Ns, rows, counts = [], [], [], [], []
@@ -429,24 +430,48 @@ def _bwtcp_group(blocks, level, dev, first=0):
     valid = torch.arange(T, device=dev)[None, :] < \
         (torch.stack(counts) - 1)[:, None]     # without the EOB slot
     del rows
-    tok_cap = _bwtcp_tok_cap(bs)
     Ns = torch.tensor(Ns, dtype=torch.int32, device=dev)
     states = coder_states(np.stack(states), dev)
     timer.add('host_syncs', 2)              # two uploads from pageable memory
-    tokens, tok_n, nbytes = dm.fenwick_code_streams(
-        syms, valid, Ns, dl.MAX_N, host_bwtcp.F_PROB_MAX,
-        host_bwtcp.F_PROB_INCR, states, tok_cap)
-    del syms, valid
-    with timer.stage('bwtcp.fetch'):
-        out_cap = bs + (bs >> 1) + 4096
-        byts, lens = dc.token_bytes(tokens, tok_n, nbytes, out_cap)
-        del tokens
-        tok_n, lens = tok_n.cpu().tolist(), lens.cpu().tolist()
-        byts = byts[:, :min(max(lens), out_cap)].cpu().numpy()
-        timer.add('host_syncs', 3)
-        return [None if tok_n[k] > tok_cap or lens[k] > out_cap else
-                np.concatenate([heads[k], byts[k, :lens[k]]])
-                for k in range(len(blocks))]
+    return heads, syms, valid, Ns, states
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(index):
+    """The CUDA stream of the BWTC-P coder jobs on card `index`, one for
+    the process: the caching allocator keeps a stream's freed blocks for
+    that stream, so a new stream each call would allocate the jobs'
+    buffers anew, call after call."""
+    return torch.cuda.Stream(index)
+
+
+def _bwtcp_code(heads, syms, valid, Ns, states, side=None, ready=None):
+    """The coder's part of one dispatch, on the encoder's worker thread:
+    one launch of the fused model and coder codes every block's body as
+    a lane, and `bwtcp.fetch` reads the streams back.  On the card it
+    runs on the CUDA stream `side`, behind the event `ready` that the
+    calling thread recorded after `_bwtcp_group`; the job holds the
+    inputs until its read-backs have returned.  Returns the block
+    streams, None for a block whose tokens or bytes pass their caps."""
+    timer = stage_timer()
+    bs = syms.shape[1] - 1
+    tok_cap = _bwtcp_tok_cap(bs)
+    with torch.cuda.stream(side):
+        if ready is not None:
+            side.wait_event(ready)
+        tokens, tok_n, nbytes = dm.fenwick_code_streams(
+            syms, valid, Ns, dl.MAX_N, host_bwtcp.F_PROB_MAX,
+            host_bwtcp.F_PROB_INCR, states, tok_cap)
+        with timer.stage('bwtcp.fetch'):
+            out_cap = bs + (bs >> 1) + 4096
+            byts, lens = dc.token_bytes(tokens, tok_n, nbytes, out_cap)
+            del tokens
+            tok_n, lens = tok_n.cpu().tolist(), lens.cpu().tolist()
+            byts = byts[:, :min(max(lens), out_cap)].cpu().numpy()
+            timer.add('host_syncs', 3)
+            return [None if tok_n[k] > tok_cap or lens[k] > out_cap else
+                    np.concatenate([heads[k], byts[k, :lens[k]]])
+                    for k in range(len(heads))]
 
 
 def bwtcp_compress_device(data, output=None, level=9, batch=8,
@@ -461,7 +486,13 @@ def bwtcp_compress_device(data, output=None, level=9, batch=8,
     ``host.bwtcp.BWTCP.compress_file``.  Returns the stream (uint8
     array), or writes it to `output` (a stream with write_byte) and
     returns it.  ``bwtcp_compress_device.last_stats`` counts the blocks
-    of the last call by route."""
+    of the last call by route.
+
+    One worker thread codes the dispatches in order (`_bwtcp_code`, on
+    a side stream on the card) while this thread issues the next
+    dispatch's blocks and then codes the tail on the host; the jobs are
+    collected in order, and an error of one is raised before anything
+    is written.  No worker outlives the call."""
     timer = stage_timer()
     with timer.stage('bwtcp.split'):
         dev = checked_device(device, 'bwtcp_compress_device')
@@ -479,20 +510,44 @@ def bwtcp_compress_device(data, output=None, level=9, batch=8,
         timer.report()
         return result
     payloads = [None] * len(blocks)
-    for g in range(0, len(full), batch):
-        idxs = full[g:g + batch]
-        with timer.stage('bwtcp.group', g // batch):
-            for i, p in zip(idxs, _bwtcp_group(
-                    [blocks[i] for i in idxs], level, dev, idxs[0])):
+    side = (_side_stream(torch.cuda.current_device() if dev.index is None
+                         else dev.index) if dev.type == 'cuda' else None)
+    pool = ThreadPoolExecutor(1)
+    jobs = []
+    try:
+        for g in range(0, len(full), batch):
+            idxs = full[g:g + batch]
+            with timer.stage('bwtcp.group', g // batch):
+                coder_in = _bwtcp_group([blocks[i] for i in idxs], level,
+                                        dev, idxs[0])
+                ready = None
+                if side is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(dev))
+                jobs.append((idxs, pool.submit(_bwtcp_code, *coder_in,
+                                               side, ready)))
+                del coder_in
+            timer.add('coder_dispatches')
+        for i, b in enumerate(blocks):
+            if b.shape[0] != bs:
+                stats['host_blocks'] += 1
+                with timer.stage('bwtcp.host_block', i):
+                    payloads[i] = host_bwtcp._encode_block(b, level)
+        for g, (idxs, job) in enumerate(jobs):
+            if not job.done():
+                timer.add('coder_waits')
+            with timer.stage('bwtcp.wait', g):
+                streams = job.result()
+            for i, p in zip(idxs, streams):
                 payloads[i] = p
                 stats['device_blocks' if p is not None
                       else 'overflow_blocks'] += 1
-    for i, b in enumerate(blocks):
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for i in full:
         if payloads[i] is None:
-            if b.shape[0] != bs:
-                stats['host_blocks'] += 1
             with timer.stage('bwtcp.host_block', i):
-                payloads[i] = host_bwtcp._encode_block(b, level)
+                payloads[i] = host_bwtcp._encode_block(blocks[i], level)
     with timer.stage('bwtcp.write'):
         result = _container(host_bwtcp.MAGIC, level, payloads, data, output)
     timer.report()

@@ -10,6 +10,7 @@ only the port need not have.)  Without a card every test here skips."""
 
 import bz2
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -1104,6 +1105,61 @@ def test_bwtcp_and_bwtcl_on_card(cuda):
     # the encodes code through the fused entry alone
     for k in ('fenwick_encode', 'range_encode'):
         assert _cuda.launches[k] == before[k], k
+
+
+def _bwtcp_five_blocks_and_tail():
+    """Five level-6 blocks of text and a 123,457-byte tail."""
+    s5 = _sample5()
+    return (s5 + s5[::-1])[:5 * 600000 + 123457]
+
+
+def test_bwtcp_pipeline_on_card_equals_host(cuda):
+    """Level 6, two blocks a dispatch: three coder jobs on the worker
+    thread and its side stream, each behind the next dispatch's sorts,
+    byte for byte the host codec's, twice in a row, and no worker left
+    running.  The second call reuses the first's cached device memory:
+    the jobs run on one side stream, call after call, where a new stream
+    would allocate at least the coder's token buffers anew (2 lanes of
+    750,064 tokens, 12 bytes each)."""
+    from compressjs_tpu_torch.parallel import pipeline as pl
+    data = _bwtcp_five_blocks_and_tail()
+    want = bytes(cz.BWTCP.compress_file(data, None, 6))
+    threads = set(threading.enumerate())
+    reserved = []
+    for _ in range(2):
+        got = bytes(cz.bwtcp_compress_device(data, level=6, batch=2,
+                                             device='cuda'))
+        assert got == want
+        assert pl.bwtcp_compress_device.last_stats == {
+            'device_blocks': 5, 'host_blocks': 1, 'overflow_blocks': 0}
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    assert set(threading.enumerate()) <= threads
+    assert reserved[1] - reserved[0] < 2 * 750064 * 12
+
+
+def test_bwtcp_pipeline_raises_a_coder_flag(cuda, monkeypatch):
+    """A model size past MAX_N in the second of three dispatches: the
+    fused kernel's flag, read on the worker thread, raises the wrapper's
+    ValueError from the call, and no worker is left running."""
+    from compressjs_tpu_torch.ops import device_lane as dl
+    from compressjs_tpu_torch.parallel import pipeline as pl
+    group, calls = pl._bwtcp_group, []
+
+    def bad_second(*args, **kwargs):
+        heads, syms, valid, Ns, states = group(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == 2:
+            Ns = torch.full_like(Ns, dl.MAX_N + 1)
+        return heads, syms, valid, Ns, states
+
+    monkeypatch.setattr(pl, '_bwtcp_group', bad_second)
+    threads = set(threading.enumerate())
+    with pytest.raises(ValueError, match='fenwick_code_streams: a lane '
+                                         r'size outside \[2, max_n\]'):
+        cz.bwtcp_compress_device(_bwtcp_five_blocks_and_tail(), level=6,
+                                 batch=2, device='cuda')
+    assert len(calls) == 3
+    assert set(threading.enumerate()) <= threads
 
 
 @pytest.mark.parametrize('golden', ['sample5_bzip2_9.bz2',

@@ -44,7 +44,7 @@ TOP = {
               'bwtcl.launch', 'bwtcl.wait', 'bwtcl.host_block',
               'bwtcl.write'},
     'bwtcp': {'bwtcp.split', 'bwtcp.group', 'bwtcp.host_block',
-              'bwtcp.write'},
+              'bwtcp.wait', 'bwtcp.write'},
 }
 
 
@@ -306,7 +306,9 @@ def test_bwtcp_encode_stages_and_counters(timer):
     """Three level-6 blocks, two to a dispatch, and a 50,000-byte tail:
     G = 2 dispatches, D = 3 card blocks, H = 1 host block.  host_syncs 7
     a card block + 2 x sort_rounds + 5 a dispatch here (the card's fused
-    kernel reads its error flag too: 6 there).  A short pattern repeated
+    kernel reads its error flag too: 6 there).  Each dispatch's coder is
+    a job of the worker thread, collected once in `bwtcp.wait`; a job
+    still running then counts in coder_waits.  A short pattern repeated
     keeps the plain Fenwick model and coder to ~900 steps a block."""
     rng = np.random.default_rng(5)
     pat = rng.integers(97, 123, 64, dtype=np.uint8).tobytes()
@@ -319,11 +321,14 @@ def test_bwtcp_encode_stages_and_counters(timer):
         'bwtcp.split': 1, 'bwtcp.group': G, 'bwtcp.head': D,
         'ops.bwt_eof_block': D, 'ops.mtf_encode': D,
         'ops.fenwick_code_streams': G, 'bwtcp.fetch': G,
-        'bwtcp.host_block': H, 'bwtcp.write': 1}
+        'bwtcp.host_block': H, 'bwtcp.wait': G, 'bwtcp.write': 1}
     rounds = timer.counters['sort_rounds']
-    assert rounds >= D
-    assert dict(timer.counters) == {
-        'sort_rounds': rounds, 'host_syncs': 7 * D + 2 * rounds + 5 * G}
+    waits = timer.counters.get('coder_waits', 0)
+    assert rounds >= D and 0 <= waits <= G
+    assert {k: v for k, v in timer.counters.items()
+            if k != 'coder_waits'} == {
+        'sort_rounds': rounds, 'host_syncs': 7 * D + 2 * rounds + 5 * G,
+        'coder_dispatches': G}
     assert _covers(timer, 'bwtcp', wall) > 0.9
 
 
@@ -380,6 +385,8 @@ def test_stage_readers(name, totals, want):
     ('syncs_per_block.bwtcp', {'host_syncs': 130, 'sort_rounds': 9}, 32.5),
     ('candidate_yield.decode',
      {'candidates_launched': 5, 'candidates_accepted': 4}, 80.0),
+    ('coder_hidden_pct.bwtcp', {'coder_dispatches': 14, 'coder_waits': 1},
+     100.0 * 13 / 14),
 ])
 def test_counter_readers(name, counters, want, timer):
     read = _reader(name).read
@@ -393,7 +400,8 @@ def test_counter_readers_read_nothing_from_an_older_timer(monkeypatch):
     """A program whose timer has no counters (the commit before them)."""
     monkeypatch.setattr(tracer, '_global_timer', types.SimpleNamespace())
     for name in ('sort_rounds_per_block.encode', 'syncs_per_block.encode',
-                 'syncs_per_block.decode', 'candidate_yield.decode'):
+                 'syncs_per_block.decode', 'candidate_yield.decode',
+                 'coder_hidden_pct.bwtcp'):
         assert _reader(name).read(_run({}, 4)) is None
 
 
