@@ -568,40 +568,54 @@ def bwtcl_compress_device(data, output=None, level=9, lanes=None,
     a block that passes its caps take the host codec.  Byte for byte
     ``host.bwtcl.BWTCL.compress_file``.  Returns as
     `bwtcp_compress_device`; ``bwtcl_compress_device.last_stats`` counts
-    the blocks of the last call by route."""
-    dev = checked_device(device, 'bwtcl_compress_device')
-    lanes = lanes or host_bwtcl.LANES
-    level = host_bwtcp._level_of(level)
-    data = as_u8(data)
-    bs = level * 100000
-    _, tok_cap, lane_cap = dl.lane_caps(bs, lanes)
-    flat_cap = bs + (bs >> 1) + 4096
+    the blocks of the last call by route.  One block at a time, on the
+    calling thread."""
+    timer = stage_timer()
+    with timer.stage('bwtcl_enc.split'):
+        dev = checked_device(device, 'bwtcl_compress_device')
+        lanes = lanes or host_bwtcl.LANES
+        level = host_bwtcp._level_of(level)
+        data = as_u8(data)
+        bs = level * 100000
+        _, tok_cap, lane_cap = dl.lane_caps(bs, lanes)
+        flat_cap = bs + (bs >> 1) + 4096
+        blocks = host_bwtcp.split_blocks(data, bs)
     stats = {'device_blocks': 0, 'host_blocks': 0, 'overflow_blocks': 0}
     bwtcl_compress_device.last_stats = stats
     payloads = []
-    for b in host_bwtcp.split_blocks(data, bs):
-        if b.shape[0] != bs:
-            stats['host_blocks'] += 1
-            payloads.append(host_bwtcl.encode_block(b, lanes))
-            continue
-        used, asize, remap = block_meta(b)
-        pidx, S, lens, flat, total, max_tok = dl.encode_block_lanes(
-            torch.from_numpy(b.copy()).to(dev), bs, lanes,
-            torch.from_numpy(remap).to(dev).to(torch.int64), asize)
-        S, total, max_tok = int(S), int(total), int(max_tok)
-        lens = lens.cpu().tolist()
-        if S < lanes:
-            stats['host_blocks'] += 1
-            payloads.append(host_bwtcl.encode_block(b, lanes))
-        elif max_tok > tok_cap or total > flat_cap or max(lens) > lane_cap:
-            stats['overflow_blocks'] += 1
-            payloads.append(host_bwtcl.encode_block(b, lanes))
-        else:
-            stats['device_blocks'] += 1
-            payloads.append(np.concatenate([
-                host_bwtcl.block_head(bs, int(pidx), S, lanes, used, lens),
-                flat[:total].cpu().numpy()]))
-    return _container(host_bwtcl.MAGIC, level, payloads, data, output)
+    for i, b in enumerate(blocks):
+        route = 'host_blocks'
+        if b.shape[0] == bs:
+            with timer.stage('bwtcl_enc.head', i):
+                used, asize, remap = block_meta(b)
+                blk = torch.from_numpy(b.copy()).to(dev)
+                remap = torch.from_numpy(remap).to(dev).to(torch.int64)
+            timer.add('host_syncs', 2)  # uploads from pageable memory
+            with timer.stage('bwtcl_enc.launch', i):
+                pidx, S, lens, flat, total, max_tok = dl.encode_block_lanes(
+                    blk, bs, lanes, remap, asize)
+            with timer.stage('bwtcl_enc.fetch', i):
+                S, total, max_tok = int(S), int(total), int(max_tok)
+                lens = lens.cpu().tolist()
+                timer.add('host_syncs', 4)
+                if S >= lanes:              # else the format's fewer lanes
+                    route = ('overflow_blocks' if max_tok > tok_cap
+                             or total > flat_cap or max(lens) > lane_cap
+                             else 'device_blocks')
+                if route == 'device_blocks':
+                    payloads.append(np.concatenate([
+                        host_bwtcl.block_head(bs, int(pidx), S, lanes, used,
+                                              lens),
+                        flat[:total].cpu().numpy()]))
+                    timer.add('host_syncs', 2)
+        stats[route] += 1
+        if route != 'device_blocks':
+            with timer.stage('bwtcl_enc.host_block', i):
+                payloads.append(host_bwtcl.encode_block(b, lanes))
+    with timer.stage('bwtcl_enc.write'):
+        result = _container(host_bwtcl.MAGIC, level, payloads, data, output)
+    timer.report()
+    return result
 
 
 bwtcl_compress_device.last_stats = {}

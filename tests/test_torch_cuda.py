@@ -1107,6 +1107,39 @@ def test_bwtcp_and_bwtcl_on_card(cuda):
         assert _cuda.launches[k] == before[k], k
 
 
+def test_bwtcl_encode_syncs_on_card(cuda, monkeypatch):
+    """Two level-1 blocks of text on the card, a full block of one byte
+    (fewer RLE2 symbols than lanes) and a tail on the host: host_syncs
+    13 a card block + 11 a full block that takes the host after its
+    launch + 2 x sort_rounds (README), and as many synchronising
+    operations as torch's sync debug mode reports."""
+    import warnings
+    from compressjs_tpu_torch import tracer
+    from compressjs_tpu_torch.parallel import pipeline
+    s5 = _sample5()
+    data = s5[:200000] + b'q' * 100000 + s5[200000:250000]
+    cz.bwtcl_compress_device(data, level=1, device='cuda')      # warm
+    torch.cuda.synchronize()
+    timer = tracer.StageTimer(enabled=True)
+    monkeypatch.setattr(tracer, '_global_timer', timer)
+    monkeypatch.setattr(timer, 'report', lambda out=None: None)
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            got = bytes(cz.bwtcl_compress_device(data, level=1,
+                                                 device='cuda'))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got == bytes(cz.BWTCL.compress_file(data, None, 1))
+    assert pipeline.bwtcl_compress_device.last_stats == {
+        'device_blocks': 2, 'host_blocks': 2, 'overflow_blocks': 0}
+    rounds = timer.counters['sort_rounds']
+    assert timer.counters['host_syncs'] == 13 * 2 + 11 + 2 * rounds
+    assert timer.counters['host_syncs'] == sum(
+        1 for w in caught if 'synchroniz' in str(w.message))
+
+
 def _bwtcp_five_blocks_and_tail():
     """Five level-6 blocks of text and a 123,457-byte tail."""
     s5 = _sample5()

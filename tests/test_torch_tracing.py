@@ -1,8 +1,8 @@
 """The port's own tracer, `parallel.profiling.StageTimer`: its stages and
-counters, the stages and counters of the four benchmarked entry points
+counters, the stages and counters of the five benchmarked entry points
 (``compress_file_device``, ``decompress_file_device``,
-``bwtcl_decompress_device`` and ``bwtcp_compress_device``), and the
-benchmark's readers of them.  The
+``bwtcl_decompress_device``, ``bwtcp_compress_device`` and
+``bwtcl_compress_device``), and the benchmark's readers of them.  The
 names and counts held here are the ones README lists."""
 
 import bz2
@@ -26,7 +26,7 @@ from compressjs_tpu_torch.host import bwtcp as hbwtcp
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.ops import device_entropy
 from compressjs_tpu_torch import tracer
-from compressjs_tpu_torch.parallel import profiling
+from compressjs_tpu_torch.parallel import pipeline, profiling
 from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +45,9 @@ TOP = {
               'bwtcl.write'},
     'bwtcp': {'bwtcp.split', 'bwtcp.group', 'bwtcp.host_block',
               'bwtcp.wait', 'bwtcp.write'},
+    'bwtcl_enc': {'bwtcl_enc.split', 'bwtcl_enc.head', 'bwtcl_enc.launch',
+                  'bwtcl_enc.fetch', 'bwtcl_enc.host_block',
+                  'bwtcl_enc.write'},
 }
 
 
@@ -332,6 +335,34 @@ def test_bwtcp_encode_stages_and_counters(timer):
     assert _covers(timer, 'bwtcp', wall) > 0.9
 
 
+def test_bwtcl_encode_stages_and_counters(sample5, timer):
+    """Level-1 blocks: two of text on the card (G = 2), then a full block
+    of one byte, whose RLE2 symbols are fewer than the lanes, and the
+    tail on the host (H = 2).  A full block is headed, launched and read
+    back whatever its route.  host_syncs 12 a card block and 10 a full
+    block that takes the host after its launch, + 2 x sort_rounds, here
+    (the card's fused kernel reads its error flag too: 13 and 11
+    there)."""
+    data = sample5[:200_000] + b'q' * 100_000 + sample5[200_000:250_000]
+    out, wall = _timed_call(lambda: cz.bwtcl_compress_device(
+        data, None, 1, device='cpu'))
+    assert bytes(out) == bytes(hbwtcl.BWTCL.compress_file(data, None, 1))
+    assert pipeline.bwtcl_compress_device.last_stats == {
+        'device_blocks': 2, 'host_blocks': 2, 'overflow_blocks': 0}
+    G, F, H = 2, 3, 2                  # card blocks, full blocks, host blocks
+    assert dict(timer.counts) == {
+        'bwtcl_enc.split': 1, 'bwtcl_enc.head': F, 'bwtcl_enc.launch': F,
+        'ops.bwt_eof_block': F, 'ops.mtf_encode': F,
+        'ops.fenwick_code_streams': F, 'bwtcl_enc.fetch': F,
+        'bwtcl_enc.host_block': H, 'bwtcl_enc.write': 1}
+    rounds = timer.counters['sort_rounds']
+    assert rounds >= F
+    assert dict(timer.counters) == {
+        'sort_rounds': rounds,
+        'host_syncs': 12 * G + 10 * (F - G) + 2 * rounds}
+    assert _covers(timer, 'bwtcl_enc', wall) > 0.9
+
+
 def test_entry_points_record_nothing_while_off(sample5, monkeypatch):
     t = profiling.StageTimer(enabled=False)
     monkeypatch.setattr(tracer, '_global_timer', t)
@@ -370,6 +401,10 @@ def _run(stage_totals, blocks):
     ('host_route_ms_per_block.bwtcl', {'bwtcl.host_block': 0.12}, 30.0),
     ('host_head_ms_per_block.bwtcp',
      {'bwtcp.head': 0.008, 'bwtcp.group': 2.0}, 2.0),
+    ('host_fetch_ms_per_block.bwtcl_enc',
+     {'bwtcl_enc.fetch': 0.006, 'bwtcl_enc.launch': 2.0}, 1.5),
+    ('host_head_ms_per_block.bwtcl_enc',
+     {'bwtcl_enc.head': 0.002, 'bwtcl_enc.fetch': 2.0}, 0.5),
 ])
 def test_stage_readers(name, totals, want):
     read = _reader(name).read
@@ -383,6 +418,8 @@ def test_stage_readers(name, totals, want):
     ('syncs_per_block.encode', {'host_syncs': 100, 'sort_rounds': 1}, 25.0),
     ('syncs_per_block.decode', {'host_syncs': 14}, 3.5),
     ('syncs_per_block.bwtcp', {'host_syncs': 130, 'sort_rounds': 9}, 32.5),
+    ('syncs_per_block.bwtcl_enc', {'host_syncs': 74, 'sort_rounds': 12},
+     18.5),
     ('candidate_yield.decode',
      {'candidates_launched': 5, 'candidates_accepted': 4}, 80.0),
     ('coder_hidden_pct.bwtcp', {'coder_dispatches': 14, 'coder_waits': 1},
@@ -401,7 +438,7 @@ def test_counter_readers_read_nothing_from_an_older_timer(monkeypatch):
     monkeypatch.setattr(tracer, '_global_timer', types.SimpleNamespace())
     for name in ('sort_rounds_per_block.encode', 'syncs_per_block.encode',
                  'syncs_per_block.decode', 'candidate_yield.decode',
-                 'coder_hidden_pct.bwtcp'):
+                 'coder_hidden_pct.bwtcp', 'syncs_per_block.bwtcl_enc'):
         assert _reader(name).read(_run({}, 4)) is None
 
 
@@ -418,6 +455,37 @@ def test_counter_readers_read_nothing_when_the_environment_traced(
         assert _reader(name).read(_run({}, 4)) is None
     monkeypatch.setenv('COMPRESSJS_TPU_TRACE', '0')
     assert _reader('syncs_per_block.decode').read(_run({}, 4)) == 25.0
+
+
+class _DeviceSlice:
+    """What the device readers take from a traced slice: 4 blocks, 2.5 s
+    of wall, 1.5 s busy, 300 kernels, 0.02 s under the lane coder's three
+    spans (0.01 under each other span)."""
+    blocks, window_s, busy_s, n_kernels = 4, 2.5, 1.5, 300
+    LANE = {'compressjs_tpu_torch.ops.device_model.fenwick_code_streams',
+            'compressjs_tpu_torch.ops.device_coder.token_bytes',
+            'compressjs_tpu_torch.ops.device_lane.ragged_concat'}
+
+    def device_s_under(self, *names):
+        return 0.02 if set(names) == self.LANE else 0.01
+
+
+@pytest.mark.parametrize('name,want', [
+    ('lane_code_ms_per_block.bwtcl_enc', 5.0),
+    ('launches_per_block.bwtcl_enc', 75.0),
+    ('device_idle_pct.bwtcl_enc', 40.0),
+    ('launches_per_block.bwtcp', 75.0),
+    ('device_idle_pct.bwtcp', 40.0),
+])
+def test_device_readers(name, want):
+    """Each reader on a slice that has its operations, and on one where no
+    block or no device operation was seen (a CPU run's): no reading."""
+    read = _reader(name).read
+    s = _DeviceSlice()
+    assert read(types.SimpleNamespace(slice=s)) == pytest.approx(want)
+    s.blocks = s.busy_s = s.n_kernels = 0
+    s.device_s_under = lambda *names: 0.0
+    assert read(types.SimpleNamespace(slice=s)) is None
 
 
 # the harness refuses to run in a process that has loaded JAX, as this

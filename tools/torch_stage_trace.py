@@ -1,13 +1,15 @@
 """Where a call's time goes, by the port's own stages, on the card.
 
-    python3 tools/torch_stage_trace.py [--entry encode decode bwtcl bwtcp]
+    python3 tools/torch_stage_trace.py
+        [--entry encode decode bwtcl bwtcp bwtcl_enc]
         [--seed N] [--bytes N] [--reps K] [--calls N] [--out DIR]
         [--device cpu]
 
 For each entry point of the benchmark's cells -- ``compress_file_device``
 at -9, ``decompress_file_device`` of a stdlib ``bz2 -9`` stream,
-``bwtcl_decompress_device`` of a ``BWTCL -9`` stream and
-``bwtcp_compress_device`` at -9 -- on one file that
+``bwtcl_decompress_device`` of a ``BWTCL -9`` stream,
+``bwtcp_compress_device`` at -9 and ``bwtcl_compress_device`` at -9 --
+on one file that
 the benchmark's generator (``benchmark/traffic.py``) cuts from its
 corpus, enwik8's 10^8 bytes by default:
 
@@ -56,7 +58,8 @@ from benchmark.tracing import _union, profiler  # noqa: E402
 CALL = 'tool/call'
 # the function called once a block, by its stage
 BLOCK_STAGE = {'encode': 'ops.bwt_block', 'decode': 'decode.inverse',
-               'bwtcl': 'bwtcl.launch', 'bwtcp': 'ops.bwt_eof_block'}
+               'bwtcl': 'bwtcl.launch', 'bwtcp': 'ops.bwt_eof_block',
+               'bwtcl_enc': 'bwtcl_enc.launch'}
 
 
 def _inputs(entry, data, device):
@@ -69,6 +72,9 @@ def _inputs(entry, data, device):
                 bz2.compress(data, 9))
     if entry == 'bwtcp':
         return (lambda x: cz.bwtcp_compress_device(x, level=9,
+                                                   device=device)), data
+    if entry == 'bwtcl_enc':
+        return (lambda x: cz.bwtcl_compress_device(x, level=9,
                                                    device=device)), data
     comp = cz.BWTCL.compress_file(np.frombuffer(data, np.uint8), None, 9)
     return (lambda x: cz.bwtcl_decompress_device(x, device=device),
@@ -250,8 +256,9 @@ def _synced(call, x, timer, block_stage):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    p.add_argument('--entry', nargs='+', default=['encode', 'decode',
-                                                  'bwtcl', 'bwtcp'])
+    p.add_argument('--entry', nargs='+', choices=sorted(BLOCK_STAGE),
+                   default=['encode', 'decode', 'bwtcl', 'bwtcp',
+                            'bwtcl_enc'])
     p.add_argument('--seed', type=int, default=3_000_000_019)
     p.add_argument('--bytes', type=int, default=100_000_000)
     p.add_argument('--reps', type=int, default=3)
