@@ -77,7 +77,9 @@ def block_size_of(level):
 
 def split_blocks(data, block_size):
     """The host RLE1 pass over the uint8 array `data`, block by block as
-    it goes: (packed block, CRC of the input bytes it holds)."""
+    it goes: (packed block, CRC of the input bytes it holds), both from
+    native calls that drop the GIL, so that a card encoder's worker
+    thread runs beside it."""
     start = 0
     while start < data.shape[0]:
         block, consumed = rle1_encode(data, start, block_size)

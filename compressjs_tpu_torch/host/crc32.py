@@ -1,9 +1,9 @@
 """bzip2-flavoured CRC-32 (poly 0x04C11DB7, MSB-first, init/xorout
-0xFFFFFFFF, no reflection; a copy of ``compressjs_tpu.utils.crc32``).
+0xFFFFFFFF, no reflection; the semantics of ``compressjs_tpu.utils.crc32``).
 
-* `crc32_bzip2` and `crc32_raw`: CRC-32/BZIP2 is the bit-reflected image
-  of zlib's CRC-32, so the bulk path bit-reverses each input byte, runs
-  ``zlib.crc32`` and bit-reverses the 32-bit result.
+* `crc32_bzip2` and `crc32_raw`: the bulk path, eight bytes a step in
+  the native runtime (``native.crc32_bzip2``), which drops the GIL, so
+  the card encoders' split runs beside their worker thread.
 * `CRC32`: the reference's incremental interface, byte by byte from a
   table, in bulk through `crc32_raw`, and a run of one byte in
   O(log count) (`update_crc_run`): the step for a fixed byte is an
@@ -13,16 +13,9 @@
 
 from __future__ import annotations
 
-import zlib
-
 import numpy as np
 
-_REV8 = np.array([int('{:08b}'.format(i)[::-1], 2) for i in range(256)],
-                 dtype=np.uint8)
-
-
-def _rev32(x):
-    return int('{:032b}'.format(int(x) & 0xFFFFFFFF)[::-1], 2)
+from .. import native
 
 
 def _make_table():
@@ -46,8 +39,7 @@ def crc32_bzip2(data, crc=0xFFFFFFFF):
         buf = np.ascontiguousarray(data, dtype=np.uint8)
     else:
         buf = np.frombuffer(bytes(data), dtype=np.uint8)
-    z = zlib.crc32(_REV8[buf].tobytes(), _rev32(crc) ^ 0xFFFFFFFF)
-    return _rev32(z)
+    return native.crc32_bzip2(buf, int(crc) & 0xFFFFFFFF)
 
 
 def crc32_raw(data, crc=0xFFFFFFFF):

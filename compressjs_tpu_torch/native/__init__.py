@@ -138,6 +138,8 @@ def _bind(lib):
     lib.cz_rle1_encode.argtypes = [_p_u8, _i64, _i64, _p_u8,
                                    ctypes.POINTER(_i64)]
     lib.cz_rle1_encode.restype = _i64
+    lib.cz_crc32_bzip2.argtypes = [_p_u8, _i64, ctypes.c_uint32]
+    lib.cz_crc32_bzip2.restype = ctypes.c_uint32
     lib.cz_bz2_decode_block.argtypes = [
         _p_u8, _i64, ctypes.POINTER(_i64), _p_u8, _i64, _p_i32, _p_i32,
         _p_i64, _p_i64, _p_i32, _i32, _p_u8, _p_u8, _i64]
@@ -245,6 +247,13 @@ def rle1_encode(data, block_size):
     n = lib().cz_rle1_encode(data, data.shape[0], block_size, out,
                              ctypes.byref(consumed))
     return out[:n], int(consumed.value)
+
+
+def crc32_bzip2(data, crc):
+    """The CRC-32/BZIP2 register `crc` run over the bytes of `data`,
+    complemented as bzip2 writes it."""
+    data = _u8(data)
+    return int(lib().cz_crc32_bzip2(data, data.shape[0], crc))
 
 
 def mtf_rle2(U, alphabet):

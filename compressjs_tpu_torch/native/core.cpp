@@ -1014,6 +1014,40 @@ int64_t cz_payload_pack(const uint16_t* syms, int64_t count,
 
 
 
+// CRC-32/BZIP2 (poly 0x04C11DB7, MSB first, init and xorout 0xFFFFFFFF)
+// eight bytes a step: t[k][b] is byte b's contribution k bytes before
+// the end of the step.
+struct Crc32Tables {
+  uint32_t t[8][256];
+  Crc32Tables() {
+    for (uint32_t b = 0; b < 256; b++) {
+      uint32_t c = b << 24;
+      for (int k = 0; k < 8; k++)
+        c = (c & 0x80000000u) ? (c << 1) ^ 0x04C11DB7u : c << 1;
+      t[0][b] = c;
+    }
+    for (int k = 1; k < 8; k++)
+      for (int b = 0; b < 256; b++)
+        t[k][b] = (t[k - 1][b] << 8) ^ t[0][t[k - 1][b] >> 24];
+  }
+};
+
+// CRC register `crc` (0xFFFFFFFF to start) run over n bytes at p;
+// returns the register complemented, as bzip2 writes it.
+uint32_t cz_crc32_bzip2(const uint8_t* p, int64_t n, uint32_t crc) {
+  static const Crc32Tables tabs;
+  const auto& t = tabs.t;
+  uint32_t c = crc;
+  for (; n >= 8; p += 8, n -= 8) {
+    c ^= (uint32_t)p[0] << 24 | (uint32_t)p[1] << 16 |
+         (uint32_t)p[2] << 8 | p[3];
+    c = t[7][c >> 24] ^ t[6][(c >> 16) & 255] ^ t[5][(c >> 8) & 255] ^
+        t[4][c & 255] ^ t[3][p[4]] ^ t[2][p[5]] ^ t[1][p[6]] ^ t[0][p[7]];
+  }
+  for (; n > 0; p++, n--) c = (c << 8) ^ t[0][(c >> 24) ^ *p];
+  return ~c;
+}
+
 // RLE1 encode: pack runs of >=4 equal bytes as [v,v,v,v,count<=251] into
 // a block of at most block_size output bytes, with the exact lazy
 // count-byte / block-cut semantics of the bzip2 readBlock loop

@@ -21,8 +21,13 @@ the host's side of each is `block_bits`):
 
 The host stages run in the native runtime (``native``).  A worker
 thread runs each block's device work and downloads its results, in
-block order, while the calling thread runs the host stage of the block
-before; both drop the GIL for their native work.
+block order; both threads drop the GIL for their native work.
+`DeviceBzip2Encoder.compress` queues each block there as the split
+produces it, so the worker runs block i's device stage while the
+calling thread splits block i + 1; once the split ends the calling
+thread collects the blocks in order, each one's host stage while the
+worker runs the blocks after.  Only the batch route (``'hybrid'`` with
+``batch=True``) splits the whole file before it queues anything.
 `DeviceBzip2Encoder.submit` queues one block there and returns its job,
 whose `bits()` gives the block's header and payload: the encoder's own
 `compress` and ``parallel.hetero``'s device worker both drive it.  With
@@ -168,6 +173,10 @@ class _BlockJob:
         it ran or is running (`bits` then waits for it)."""
         return self._future.cancel()
 
+    def done(self):
+        """Whether the block's device work has ended (or was dropped)."""
+        return self._future.done()
+
     def bits(self):
         """Wait for the block's device work and run its host stage:
         (header bits, payload bytes, payload bit count).  An error of the
@@ -233,32 +242,67 @@ class DeviceBzip2Encoder:
     def compress(self, data, output=None):
         """Compress bytes-like or uint8 `data`.  Returns the stream as
         bytes, or writes it to `output` (a binary file object) and
-        returns `output`."""
-        timer = stage_timer()
-        with timer.stage('encode.split'):
-            data = as_u8(data)
-            blocks = list(split_blocks(data, self.block_size))
-        # one worker: the device stages run in block order, each while
-        # the calling thread runs the host stage of the block before
+        returns `output`.
+
+        Each block is queued on the worker as the split produces it (its
+        RLE1 pass and CRC, then its `block_meta`), so the worker runs
+        block i's device stage while this thread splits block i + 1;
+        once the split ends the jobs are collected in order.  Only the
+        batch route ('hybrid' with ``batch=True``) splits the whole file
+        first, since its one device call takes every full block.  An
+        error of the split, a meta or a device stage is raised here, and
+        the device work still queued is dropped."""
+        data = as_u8(data)
         try:
-            with timer.stage('encode.queue'):
-                metas = [block_meta(block) for block, _ in blocks]
-                full_rows = [i for i, (b, _) in enumerate(blocks)
-                             if b.shape[0] == self.block_size]
-                use_batch = (self.batch and self.mode == 'hybrid'
-                             and len(full_rows) > 1)
-                if use_batch:
-                    batch = self._worker().submit(
-                        self._batch_stage, [blocks[i][0] for i in full_rows])
-                    row_of = {i: r for r, i in enumerate(full_rows)}
-                jobs = [_BlockJob(self, block, meta, batch, row_of[i])
-                        if use_batch and i in row_of
-                        else self.submit(block, meta, i)
-                        for i, ((block, _), meta) in enumerate(
-                            zip(blocks, metas))]
-            return self._assemble([crc for _, crc in blocks], jobs, output)
+            if self.batch and self.mode == 'hybrid':
+                crcs, jobs = self._queue_batch(data)
+            else:
+                crcs, jobs = self._queue_streamed(data)
+            return self._assemble(crcs, jobs, output)
         finally:
             self.close()
+
+    def _queue_streamed(self, data):
+        """Split `data` block by block and queue each block at once:
+        (the blocks' CRCs, their jobs)."""
+        timer = stage_timer()
+        blocks = split_blocks(data, self.block_size)
+        crcs, jobs = [], []
+        while True:
+            i = len(jobs)
+            with timer.stage('encode.split', i):
+                item = next(blocks, None)
+            if item is None:
+                return crcs, jobs
+            block, crc = item
+            with timer.stage('encode.queue', i):
+                meta = block_meta(block)
+                busy = bool(jobs) and not jobs[-1].done()
+                jobs.append(self.submit(block, meta, i))
+                timer.add('encode_submits')
+                timer.add('encode_submits_busy', int(busy))
+            crcs.append(crc)
+
+    def _queue_batch(self, data):
+        """The batch route: split the whole file, then queue every
+        full block's BWT as one call and any other block alone."""
+        timer = stage_timer()
+        with timer.stage('encode.split'):
+            blocks = list(split_blocks(data, self.block_size))
+        with timer.stage('encode.queue'):
+            metas = [block_meta(block) for block, _ in blocks]
+            full_rows = [i for i, (b, _) in enumerate(blocks)
+                         if b.shape[0] == self.block_size]
+            row_of = {}
+            if len(full_rows) > 1:
+                batch = self._worker().submit(
+                    self._batch_stage, [blocks[i][0] for i in full_rows])
+                row_of = {i: r for r, i in enumerate(full_rows)}
+            jobs = [_BlockJob(self, block, meta, batch, row_of[i])
+                    if i in row_of else self.submit(block, meta, i)
+                    for i, ((block, _), meta) in enumerate(
+                        zip(blocks, metas))]
+        return [crc for _, crc in blocks], jobs
 
     def _worker(self):
         """The encoder's one worker thread, where its device work runs in

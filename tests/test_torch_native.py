@@ -12,8 +12,9 @@ from compressjs_tpu.codecs import bzip2 as bzip2_ref
 from compressjs_tpu.ops import bwt as bwt_ref
 from compressjs_tpu.ops import huffman_stages as hs_ref
 from compressjs_tpu.ops import rle as rle_ref
+from compressjs_tpu.utils import crc32 as crc32_ref
 from compressjs_tpu_torch import native
-from compressjs_tpu_torch.host import bwt, mtf_rle2, rle1
+from compressjs_tpu_torch.host import bwt, crc32, mtf_rle2, rle1
 from compressjs_tpu_torch.host import bzip2_decode as hd
 from compressjs_tpu_torch.host import bzip2_parse as bp
 from compressjs_tpu_torch.host import huffman_stages as hs
@@ -78,6 +79,32 @@ def test_rle1_split(name):
         for (b, u), (wb, wu) in zip(got, want):
             np.testing.assert_array_equal(b, wb)
             assert u == wu
+
+
+@pytest.mark.parametrize('name', CASES + ['random_lengths'])
+def test_rle1_crc_split(name):
+    """The native CRC-32/BZIP2 of each block's consumed input, and the
+    register carried from one block into the next, equal the JAX
+    package's (over lengths on and off the native loop's eight-byte
+    steps)."""
+    if name == 'random_lengths':
+        rng = np.random.default_rng(99)
+        data = rng.integers(0, 256, 4133).astype(np.uint8)
+        sizes = [1, 7, 8, 9, 15, 16, 17, 1000]
+    else:
+        data, bs = _case(name)
+        sizes = [bs]
+    for bs in sizes:
+        start, reg, want_reg = 0, 0xFFFFFFFF, 0xFFFFFFFF
+        while start < data.shape[0]:
+            _, used = rle1.rle1_encode(data, start, bs)
+            piece = data[start:start + used]
+            assert crc32.crc32_bzip2(piece) == crc32_ref.crc32_bzip2(piece)
+            reg = crc32.crc32_raw(piece, reg)
+            want_reg = crc32_ref.crc32_raw(piece, want_reg)
+            assert reg == want_reg
+            start += used
+    assert crc32.crc32_bzip2(data[:0]) == crc32_ref.crc32_bzip2(b'') == 0
 
 
 def test_rle1_defers_edge_4run():

@@ -5,6 +5,7 @@ import bz2
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -12,7 +13,9 @@ import torch
 
 from compressjs_tpu.codecs import bzip2 as bzip2_ref
 import compressjs_tpu_torch as cz
-from compressjs_tpu_torch.parallel import pipeline
+from compressjs_tpu_torch import tracer
+from compressjs_tpu_torch.host import bzip2 as host_bzip2
+from compressjs_tpu_torch.parallel import pipeline, profiling
 from tests import _cpu_share  # noqa: F401 -- caps torch's threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -107,6 +110,136 @@ def test_tail_block_takes_device_path(monkeypatch):
     data = _input('text_150k')
     cz.compress_file_device(data, level=1, device='cpu')
     assert len(calls) == 2 and calls[0] == 99981 and calls[1] < 99981
+
+
+# -- blocks queued as the split produces them -------------------------------
+
+def _blocks_input(kind, level):
+    """'one_block': a full block and nothing after; 'blocks': two full
+    blocks and a short tail at level 9, three and a tail at level 1;
+    'empty'.  Text-like bytes, which RLE1 leaves near their size."""
+    bs = host_bzip2.block_size_of(level)
+    if kind == 'empty':
+        return b''
+    n = bs if kind == 'one_block' else (2 if level == 9 else 3) * bs + 5000
+    rng = np.random.default_rng(11)
+    words = [rng.integers(97, 123, rng.integers(1, 9)).astype(np.uint8)
+             for _ in range(800)]
+    text = np.concatenate([np.append(words[i], np.uint8(32))
+                           for i in rng.integers(0, 800, n // 2)])[:n]
+    sizes = [b.shape[0] for b, _ in host_bzip2.split_blocks(text, bs)]
+    assert len(sizes) == (1 if kind == 'one_block' else n // bs + 1)
+    return text.tobytes()
+
+
+@pytest.mark.parametrize('level,kind,encoder', [
+    (1, 'one_block', 'full'), (1, 'blocks', 'full'), (1, 'empty', 'full'),
+    (9, 'one_block', 'full'), (9, 'blocks', 'full'), (9, 'empty', 'full'),
+    (1, 'blocks', 'core'), (1, 'blocks', 'hybrid_batch')])
+def test_streamed_compress_matches_host_codec(level, kind, encoder):
+    data = _blocks_input(kind, level)
+    got = cz.DeviceBzip2Encoder(level, device='cpu',
+                                **ENCODERS[encoder]).compress(data)
+    assert got == bytes(bzip2_ref.compress_file(data, None, level))
+    assert bz2.decompress(got) == data
+
+
+def _spy_split(monkeypatch, order, before=None, end=None):
+    """Record each block the split produces as ('split', k); call
+    `before(k)` first, and `end()` once the split is exhausted."""
+    real = pipeline.split_blocks
+
+    def spy(data, block_size):
+        for k, item in enumerate(real(data, block_size)):
+            if before is not None:
+                before(k)
+            order.append(('split', k))
+            yield item
+        if end is not None:
+            end()
+
+    monkeypatch.setattr(pipeline, 'split_blocks', spy)
+
+
+def _spy_device(monkeypatch, order, before=None):
+    """Record each block's device stage as ('device', index) when it
+    starts; call `before(index)` first."""
+    real = pipeline.device_stage
+
+    def spy(block, meta, mode, device, index=None):
+        if before is not None:
+            before(index)
+        order.append(('device', index))
+        return real(block, meta, mode, device, index)
+
+    monkeypatch.setattr(pipeline, 'device_stage', spy)
+
+
+def test_first_block_runs_while_the_split_goes_on(monkeypatch):
+    """The split holds back every block after the first until block 0's
+    device stage has started (a whole-file split first would wait out
+    the guard for each, and record the device stage last)."""
+    data = _blocks_input('blocks', 1)
+    order, started = [], threading.Event()
+    _spy_split(monkeypatch, order,
+               lambda k: k and started.wait(timeout=30))
+    _spy_device(monkeypatch, order, lambda i: started.set())
+    got = cz.compress_file_device(data, level=1, device='cpu')
+    assert bz2.decompress(got) == data
+    splits = [e for e in order if e[0] == 'split']
+    assert len(splits) == 4
+    assert order.index(('device', 0)) < order.index(splits[-1])
+    assert [e for e in order if e[0] == 'device'] == [
+        ('device', i) for i in range(4)]
+
+
+def _encoder_threads():
+    return {t for t in threading.enumerate()
+            if t.name.startswith('ThreadPoolExecutor')}
+
+
+@pytest.mark.parametrize('where', ['device', 'split'])
+def test_errors_propagate_and_end_the_worker(monkeypatch, where):
+    """A RuntimeError of block 1's device stage (of 4), or of the split
+    at its third block, is raised from `compress`, and the encoder's
+    worker has ended."""
+    data = _blocks_input('blocks', 1)
+    order = []
+
+    def fail(k):
+        if k == {'device': 1, 'split': 2}[where]:
+            raise RuntimeError('planted ' + where)
+
+    if where == 'device':
+        _spy_device(monkeypatch, order, fail)
+    else:
+        _spy_split(monkeypatch, order, fail)
+    before = _encoder_threads()
+    enc = cz.DeviceBzip2Encoder(1, device='cpu')
+    with pytest.raises(RuntimeError, match='planted ' + where):
+        enc.compress(data)
+    assert enc._pool is None
+    assert not {t for t in _encoder_threads() - before if t.is_alive()}
+
+
+def test_submit_counters(monkeypatch):
+    """Each block's device stage waits until the split is exhausted, so
+    every block after the first is queued while the one before it runs;
+    with the timer off nothing is counted."""
+    timer = profiling.StageTimer(enabled=True)
+    monkeypatch.setattr(tracer, '_global_timer', timer)
+    order, split_done = [], threading.Event()
+    data = _blocks_input('blocks', 1)
+    _spy_split(monkeypatch, order, end=split_done.set)
+    _spy_device(monkeypatch, order, lambda i: split_done.wait(timeout=30))
+    cz.compress_file_device(data, level=1, device='cpu')
+    assert timer.counters['encode_submits'] == 4
+    assert timer.counters['encode_submits_busy'] == 3
+    assert timer.counts['encode.queue'] == 4
+    timer.counters.clear()
+    timer.enabled = False
+    cz.compress_file_device(data, level=1, device='cpu')
+    assert not timer.counters
 
 
 REF_TIES = 'COMPRESSJS_TPU_BZ2_REF_TIES'

@@ -207,10 +207,11 @@ def test_device_trace_turns_the_timer_on(tmp_path, timer):
 # -- the entry points' stages and counters ------------------------------------
 
 def test_encode_stages_and_counters(sample5, timer, monkeypatch):
-    """Two level-1 blocks.  Per block: the host's stages, the worker's
-    `encode.device` with its upload, ops stages and downloads; host_syncs
-    14 + twice the sort's rounds + the group optimisation's refinement
-    rounds."""
+    """Two level-1 blocks.  Per block: the host's stages (the split's
+    last entry finds the input's end), the worker's `encode.device` with
+    its upload, ops stages and downloads; host_syncs 14 + twice the
+    sort's rounds + the group optimisation's refinement rounds; each
+    block queued once, the second while the first may still run."""
     builds = []
 
     def counted(freqs, m, err):
@@ -225,7 +226,7 @@ def test_encode_stages_and_counters(sample5, timer, monkeypatch):
     assert bz2.decompress(out) == data
     B = 2
     assert dict(timer.counts) == {
-        'encode.split': 1, 'encode.queue': 1, 'device wait+fetch': B,
+        'encode.split': B + 1, 'encode.queue': B, 'device wait+fetch': B,
         'host header stage': B, 'encode.write': B + 2,
         'encode.device': B, 'encode.upload': B, 'encode.wait': B,
         'ops.bwt_block': B, 'ops.mtf_encode': B,
@@ -236,7 +237,10 @@ def test_encode_stages_and_counters(sample5, timer, monkeypatch):
     refine = len(builds) - 5 * B
     assert rounds >= B and B <= refine <= 4 * B
     assert timer.counters['host_syncs'] == 14 * B + 2 * rounds + refine
-    assert set(timer.counters) == {'sort_rounds', 'host_syncs'}
+    assert timer.counters['encode_submits'] == B
+    assert timer.counters['encode_submits_busy'] <= B - 1
+    assert set(timer.counters) == {'sort_rounds', 'host_syncs',
+                                   'encode_submits', 'encode_submits_busy'}
     assert _covers(timer, 'encode', wall) > 0.9
 
 
@@ -424,6 +428,8 @@ def test_stage_readers(name, totals, want):
      {'candidates_launched': 5, 'candidates_accepted': 4}, 80.0),
     ('coder_hidden_pct.bwtcp', {'coder_dispatches': 14, 'coder_waits': 1},
      100.0 * 13 / 14),
+    ('split_hidden_pct.encode',
+     {'encode_submits': 112, 'encode_submits_busy': 111}, 100.0 * 111 / 112),
 ])
 def test_counter_readers(name, counters, want, timer):
     read = _reader(name).read
@@ -438,7 +444,8 @@ def test_counter_readers_read_nothing_from_an_older_timer(monkeypatch):
     monkeypatch.setattr(tracer, '_global_timer', types.SimpleNamespace())
     for name in ('sort_rounds_per_block.encode', 'syncs_per_block.encode',
                  'syncs_per_block.decode', 'candidate_yield.decode',
-                 'coder_hidden_pct.bwtcp', 'syncs_per_block.bwtcl_enc'):
+                 'coder_hidden_pct.bwtcp', 'syncs_per_block.bwtcl_enc',
+                 'split_hidden_pct.encode'):
         assert _reader(name).read(_run({}, 4)) is None
 
 
@@ -501,19 +508,21 @@ sys.exit(harness.main(['--workload', sys.argv[2], '--seed', '3000000019',
 '''
 
 
-@pytest.mark.parametrize('workload,names', [
+@pytest.mark.parametrize('workload,names,zero', [
     ('bzip2-9.files-encode',
      ['host_wait_share.encode', 'host_split_ms_per_block.encode',
       'host_write_ms_per_block.encode', 'sort_rounds_per_block.encode',
-      'syncs_per_block.encode']),
+      'syncs_per_block.encode'], ['split_hidden_pct.encode']),
     ('bzip2-9.files-decode',
      ['host_parse_ms_per_block', 'host_scan_ms_per_block.decode',
       'host_finish_ms_per_block.decode', 'candidate_yield.decode',
-      'syncs_per_block.decode']),
+      'syncs_per_block.decode'], []),
 ])
-def test_traced_cpu_run_reports_the_program_metrics(workload, names):
+def test_traced_cpu_run_reports_the_program_metrics(workload, names, zero):
     """The harness's traced run on the CPU (the device metrics read
-    nothing there) reports each metric read from the program's tracer."""
+    nothing there) reports each metric read from the program's tracer;
+    those in `zero` read 0 on its one-block files (a first block has no
+    block before it to hide behind)."""
     env = dict(os.environ)
     env.pop('COMPRESSJS_TPU_TRACE', None)
     r = subprocess.run([sys.executable, '-c', _TRACED, ROOT, workload],
@@ -522,5 +531,6 @@ def test_traced_cpu_run_reports_the_program_metrics(workload, names):
     assert r.returncode == 0, r.stderr[-2000:]
     line = json.loads(r.stdout.strip().splitlines()[-1])
     assert line['correct'] is True
-    assert sorted(line['metrics']) == sorted(names)
+    assert sorted(line['metrics']) == sorted(names + zero)
     assert all(line['metrics'][n]['value'] > 0 for n in names)
+    assert all(line['metrics'][n]['value'] == 0 for n in zero)

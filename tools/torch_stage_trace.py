@@ -23,6 +23,9 @@ corpus, enwik8's 10^8 bytes by default:
    top-level stage and every host operation of 1 ms or more they
    overlap; the share of the calls that no stage on
    the calling thread covers; the timer's totals and counters a block;
+   for the bzip2 encode, the worker's host ms a block (``encode.device``)
+   for the blocks it started while the calling thread still split and
+   queued the file, and for those after;
 4. one call under ``torch.cuda.set_sync_debug_mode('warn')`` with the
    timer on: the synchronising operations by source line, beside the
    program's ``host_syncs``.
@@ -209,7 +212,8 @@ def _profiled(call, x, device, timer, block_stage, calls):
         return sorted(out, key=lambda x: -x[1])[:8]
     blocks = timer.counts.get(block_stage, 0) or float('nan')
     gaps.sort(reverse=True)
-    return {
+    extra = _worker_blocks(ranges, caller, others, call_spans)
+    return dict(extra, **{
         'wall_s': wall,
         'busy_s': sum(e - s for s, e in busy) * 1e-9,
         'idle_share': 1 - sum(e - s for s, e in busy) * 1e-9 / wall,
@@ -227,7 +231,31 @@ def _profiled(call, x, device, timer, block_stage, calls):
         'stage_counts': dict(timer.counts),
         'counters_per_block': {n: c / blocks
                                for n, c in timer.counters.items()},
-    }, gaps
+    }), gaps
+
+
+def _worker_blocks(ranges, caller, others, call_spans):
+    """The bzip2 encode's worker host ms a block (its `encode.device`
+    ranges), for the blocks it started while the calling thread was
+    still splitting and queueing (before the call's last `encode.queue`
+    ended) and for those after; {} for another entry point."""
+    queued = [r for r in ranges[caller] if r[2] == 'encode.queue']
+    if not queued:
+        return {}
+    during, after = [], []
+    for s, e, _ in call_spans:
+        split_end = max((qe for qs, qe, _ in queued if s <= qs < e),
+                        default=s)
+        for t in others:
+            for ws, we, n in ranges[t]:
+                if n == 'encode.device' and s <= ws < e:
+                    (during if ws < split_end else after).append(
+                        (we - ws) * 1e-6)
+    return {'worker_ms_per_block': {
+        k: {'blocks': len(ms),
+            'mean_ms': statistics.fmean(ms) if ms else None,
+            'median_ms': statistics.median(ms) if ms else None}
+        for k, ms in (('during_split', during), ('after_split', after))}}
 
 
 def _synced(call, x, timer, block_stage):
